@@ -9,29 +9,42 @@ Phases (any failure raises and exits non-zero):
    ``scalable_collaborative_zksnark_tpu_torch/csrc`` (one ``nvcc`` each,
    in parallel);
 2. hold each kernel (Fr mul/add/sub, the Fq instances, the sumcheck
-   fold phase) bit for bit against its plain PyTorch version on the card,
-   on full-size and broadcast operands, and time both (CUDA events,
-   median of 10 or more);
-3. the main path: ``c_sumcheck_product`` in leader mode at the
+   fold phase; the G1 point ops on 2^16 points and an edge set, the
+   scalar ladder on 1,024 full scalars and 0, 1, r - 1, the accumulate on
+   a forced x-collision) bit for bit against its plain PyTorch version on
+   the card, and time both (CUDA events, median of 10 or more for the
+   kernels); print each kernel's registers and spill bytes;
+3. the sumcheck main path: ``c_sumcheck_product`` in leader mode at the
    gate-identity shape of the n = 16, l = 8 prove, ``[1, 6, 2^13, 16]``
    tables; launch counts are read around this one call; digest pinned;
    every kernel call of that run is recorded and replayed through the
    plain version on the same operands (bit equality);
-4. the reference's sumcheck envelope, l = 32, with the seeds of
+4. the MSM paths of the same prove (leader mode, one party), each with
+   the launch counts set to 0 just before it and read just after, a
+   JAX-made digest pin, and host time (synchronised, median of 3): the
+   random SRS bases (``srs_random``'s recipe), (a) the ``c_commit`` of
+   three polynomials (``d_msm`` over 8,192 bases), (b) the ``d_commit``
+   of three (``msm`` over 1,024), (c) a ``c_open`` q-vector chain
+   (``msm_ragged`` over levels 4,096 .. 1, batch 3).  Every G1- and
+   field-kernel call of (a) and (c) is replayed through its plain
+   version; Horner, bucket-serial and the accumulate are timed at the
+   shapes these calls gave them;
+5. the reference's sumcheck envelope, l = 32, with the seeds of
    ``examples/sumcheck.py``: ``c_sumcheck_product`` at n = 26 (pinned),
    local ``sumcheck_product`` at n = 20 (pinned), ``c_sumcheck_product``
    at n = 30 (timed only);
-5. sim mode, l = 4 (32 parties), n = 20, shares from ``pack_from_public``:
+6. sim mode, l = 4 (32 parties), n = 20, shares from ``pack_from_public``:
    the opened transcript must pass ``check_sumcheck_product`` and equal the
    local transcript, and the party-net counters must equal the pins;
-6. print the kernel table (one JSON line) and last
+7. print the kernel table (one JSON line) and last
    ``{"ok": true, "device": {...}}``.
 
-The pins (sha256 of the little-endian uint32 limb bytes, and the comm
-counters) were made from the JAX package on the CPU with the same seeds
-and the same digest code, by ``test_chip_smoke_pins`` in
-``tests/test_torch_sumcheck.py`` (marked slow), which recomputes and
-checks them.
+The pins (sha256 of the little-endian uint32 limb bytes, of normalized
+points for the MSM paths, and the comm counters) were made from the JAX
+package on the CPU with the same seeds and the same digest code, by
+``test_chip_smoke_pins`` in ``tests/test_torch_sumcheck.py`` and
+``test_chip_smoke_msm_pins`` in ``tests/test_torch_msm.py`` (marked
+slow), which recompute and check them.
 """
 
 from __future__ import annotations
@@ -43,14 +56,25 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from scalable_collaborative_zksnark_tpu_torch import cuda_build
+from scalable_collaborative_zksnark_tpu_torch.curves import cuda_g1
+from scalable_collaborative_zksnark_tpu_torch.curves import g1 as g1_module
+from scalable_collaborative_zksnark_tpu_torch.curves.g1 import (
+    BLS12_381_G1_GEN,
+    PointJ,
+    bls12_381_g1,
+    map_points,
+)
 from scalable_collaborative_zksnark_tpu_torch.fields import cuda_fr
 from scalable_collaborative_zksnark_tpu_torch.fields import fr as fr_module
 from scalable_collaborative_zksnark_tpu_torch.fields.fr import get_field
+from scalable_collaborative_zksnark_tpu_torch.fields.config import int_to_limbs
 from scalable_collaborative_zksnark_tpu_torch.mpc.net import PartyNet
 from scalable_collaborative_zksnark_tpu_torch.primitives import cuda_sumcheck
+from scalable_collaborative_zksnark_tpu_torch.primitives import msm as msm_module
 from scalable_collaborative_zksnark_tpu_torch.primitives import sumcheck as sumcheck_module
 from scalable_collaborative_zksnark_tpu_torch.primitives.sumcheck import (
     c_sumcheck_product,
@@ -58,7 +82,7 @@ from scalable_collaborative_zksnark_tpu_torch.primitives.sumcheck import (
     sumcheck_product,
 )
 from scalable_collaborative_zksnark_tpu_torch.pss.pss import PackedSharingParams
-from scalable_collaborative_zksnark_tpu_torch.utils.digest import limb_digest
+from scalable_collaborative_zksnark_tpu_torch.utils.digest import limb_digest, point_digest
 
 FIELD = "bls12_381_fr"
 # Inputs of each pinned call: log2 size, packing factor, batch, seeds of
@@ -68,12 +92,25 @@ ENVELOPE = {"n": 26, "l": 32, "seeds": (1, 2, 3)}
 LOCAL = {"n": 20, "seeds": (4, 5, 3)}
 TOP = {"n": 30, "l": 32, "seeds": (1, 2, 3)}
 SIM = {"n": 20, "l": 4, "seeds": (21, 22, 23)}
+# The MSM paths of the n = 16, l = 8 prove: SRS sizes and seeds of bases
+# and scalars.  c_commit: the three wire polynomials' commit (2^16 / l
+# packed bases); d_commit: three per-party 2^10 commits; c_open: the
+# q-vector chain of three polynomials, levels 4,096 .. 1.
+COMMIT = {"n": 8192, "l": 8, "batch": 3, "seeds": (31, 32)}
+DCOMMIT = {"n": 1024, "batch": 3, "seeds": (33, 34)}
+OPEN = {"top": 4096, "batch": 3, "seeds": (35, 36)}
 PINS = {
     "gate": "f7e08c95ce2e783ffaea257927acf5fd5d507d14ece420d691c1af4a4c099f0b",
     "envelope": "d1663780c5fd5c893992c327495f23e9187ac6f71b168410ea55b16c428760cd",
     "local": "a28e790618ad3a6d3cd6e153212104c26ffbe5a36273b1b823a98b2f61f31242",
     # (up[0], down[0], up[1], down[1], rounds) after the sim call
     "sim_comm": (8432, 1984, 64, 272, 4),
+    "commit_bases": "11f5b65453c60a9f7ec6f9b896465cffc73c7aae4abc880f3bbccb9eb84ed5b8",
+    "c_commit": "7aa7e7aac7dcbfaf9049e170cf7f2744ad3b6be89a48dee0f9cb58aa1bdc11e2",
+    # (up[0], down[0], up[1], down[1], rounds) after the c_commit call
+    "c_commit_comm": (9576, 9576, 152, 152, 2),
+    "d_commit": "de71933757f550bce55bb74f3d58fa698eef57a817005681dbb8e1f9502b62cb",
+    "c_open": "3941801c515593f3fe6063451492191ae82708e0b591e30ad6b8703f71baa9ae",
 }
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
@@ -90,6 +127,26 @@ KERNELS = {
         "scalable_collaborative_zksnark_tpu_torch/csrc/sumcheck.cu",
         "scalable_collaborative_zksnark_tpu/primitives/pallas_sumcheck.py:38"),
 }
+_G1_SRC = "scalable_collaborative_zksnark_tpu_torch/csrc/g1.cu"
+_PALLAS_G1 = "scalable_collaborative_zksnark_tpu/curves/pallas_g1.py"
+G1_KERNELS = {
+    "g1_add": (_G1_SRC, f"{_PALLAS_G1}:129"),
+    "g1_add_mixed": (_G1_SRC, f"{_PALLAS_G1}:129"),
+    "g1_double": (_G1_SRC, f"{_PALLAS_G1}:200"),
+    "g1_accumulate": (_G1_SRC, f"{_PALLAS_G1}:180"),
+    "g1_scalar_mul": (_G1_SRC, f"{_PALLAS_G1}:207"),
+    "g1_horner": (_G1_SRC, f"{_PALLAS_G1}:358"),
+    "g1_bucket_serial": (_G1_SRC, f"{_PALLAS_G1}:497"),
+}
+G1_WRAPPERS = ("add", "add_mixed", "double", "accumulate", "scalar_mul", "horner", "bucket_serial")
+# kernels that the MSM paths must launch (add_mixed and double are off the
+# leader path: phase 2 alone holds them)
+MSM_PATH_KERNELS = ("g1_add", "g1_accumulate", "g1_scalar_mul", "g1_horner", "g1_bucket_serial",
+                    "fr_mul")
+FQ_MULS = 4 * 12 * 12 + 12  # 32-bit multiplies of one Fq CIOS product
+# products per op on the critical path of one thread (general or mixed
+# add: Z1Z1 -> U2 -> HH -> J -> Y3; double: B -> t -> ... -> Y3)
+ADD_DEPTH, DOUBLE_DEPTH = 5, 3
 
 
 def _smi(query: str) -> str:
@@ -99,9 +156,11 @@ def _smi(query: str) -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def _ms(fn, reps: int = 10) -> float:
-    """Median milliseconds of ``reps`` runs of ``fn``, each between CUDA events."""
-    fn()
+def _ms(fn, reps: int = 10, warm: bool = True) -> float:
+    """Median milliseconds of ``reps`` runs of ``fn``, each between CUDA
+    events (after one warm-up run unless ``warm`` is False)."""
+    if warm:
+        fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -141,6 +200,36 @@ def _bound_ms(nbytes: float, muls: float, int_rate: float):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = muls / int_rate * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _equal(name: str, out, ref) -> int:
+    """0 if every tensor and int of ``out`` equals ``ref`` (nested tuples),
+    else raise naming the kernel."""
+    if isinstance(out, torch.Tensor):
+        err = _max_abs_err(out, ref)
+    elif isinstance(out, (tuple, list)):
+        return max((_equal(name, a, b) for a, b in zip(out, ref, strict=True)), default=0)
+    else:
+        err = abs(out - ref)
+    if err:
+        raise AssertionError(f"{name}: kernel differs from plain version by {err}")
+    return 0
+
+
+def _g1_bound(products: float, nbytes: float, chain: float, int_rate: float, lat_ms: float):
+    """(bound_ms, bound_by, kind): the larger of bytes over HBM rate,
+    products * 588 multiplies over the integer rate, and the longest
+    per-thread chain of dependent products times one product's latency."""
+    bound, by = _bound_ms(nbytes, products * FQ_MULS, int_rate)
+    if chain * lat_ms > bound:
+        return chain * lat_ms, "operations", "dependent-product chain"
+    return bound, by, "throughput"
+
+
+def _g1_row(name: str, shape, err: int, ms: float, plain_ms: float, bound) -> dict:
+    return {"kernel": name, "shape": list(shape), "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "bound_kind": bound[2], "library_ms": None, **cuda_g1.attributes(name)}
 
 
 # ---------------------------------------------------------------------------
@@ -219,8 +308,203 @@ def time_phase(F, B: int, M: int, int_rate: float, plain: bool = True) -> dict:
     return row
 
 
+def rand_points_flat(curve, count: int, seed: int) -> PointJ:
+    """``srs_random``'s random bases (JAX package, poly_comm.py:497-517):
+    G times seeded 2-limb scalars on two small ladders, one outer add
+    A_i + B_j over all ``count`` lanes, then normalize."""
+    rng = np.random.RandomState(seed & 0x7FFFFFFF)
+    side = min(max(int(np.ceil(np.sqrt(count))), 1), 4096)
+    rows = (count + side - 1) // side
+    ka = rng.randint(1, 1 << 16, size=(side, 2)).astype(np.int32)
+    kb = rng.randint(1, 1 << 16, size=(rows, 2)).astype(np.int32)
+    g = curve.from_affine_ints([BLS12_381_G1_GEN])
+    A = curve.scalar_mul(g, torch.from_numpy(ka).to(curve.device))  # [side]
+    B = curve.scalar_mul(g, torch.from_numpy(kb).to(curve.device))  # [rows]
+    grid = curve.add(map_points(lambda a: a[None], A), map_points(lambda a: a[:, None], B))
+    return curve.normalize(map_points(lambda a: a.reshape(rows * side, -1)[:count], grid))
+
+
+def fq_latency_ms(curve) -> float:
+    """Latency of one Fq product on the card: the time of a one-thread
+    chain of 2^17 dependent products less that of 2^16, over 2^16.
+    The chain's result is checked against host integers."""
+    Fq = curve.fq
+    xy = Fq.random((2,), 71)
+    out = cuda_g1.fq_mul_chain(Fq.spec, xy, 5)
+    x, y = (int(v) for v in Fq.array_to_ints(xy))
+    if int(Fq.array_to_ints(out)) != x * pow(y, 5, Fq.p) % Fq.p:
+        raise AssertionError("fq_mul_chain: wrong product")
+    n = 1 << 16
+    t1 = _ms(lambda: cuda_g1.fq_mul_chain(Fq.spec, xy, n), reps=3)
+    t2 = _ms(lambda: cuda_g1.fq_mul_chain(Fq.spec, xy, 2 * n), reps=3)
+    return (t2 - t1) / n
+
+
+def _edge_points(curve, P: PointJ, Q: PointJ):
+    """(p1, p2) over P and Q [m] plus six edge lanes: an equal pair, equal
+    points in other Jacobian forms, a cancelling pair, infinity on the
+    left, on the right and on both sides."""
+    inf = curve.infinity((1,))
+    one = lambda pt, i: map_points(lambda a: a[i:i + 1], pt)  # noqa: E731
+    left = [P, one(P, 0), one(P, 1), one(P, 2), inf, one(P, 3), inf]
+    right = [Q, one(P, 0), curve.normalize(one(P, 1)), curve.neg(one(P, 2)), one(Q, 0), inf, inf]
+    cat = lambda pts: map_points(lambda *a: torch.cat(a), *pts)  # noqa: E731
+    return cat(left), cat(right)
+
+
+def check_g1(curve, int_rate: float, lat_ms: float) -> dict:
+    """The point ops, the scalar ladder and a forced-collision accumulate
+    against their plain versions; rows keyed by kernel name."""
+    spec = curve.fq.spec
+    m = 1 << 16
+    P = curve.double(rand_points_flat(curve, m, 61))  # random Z != 1
+    Q = curve.double(rand_points_flat(curve, m, 62))
+    p1, p2 = _edge_points(curve, P, Q)
+    a2 = curve.normalize(p2)
+    M = p1.x.shape[0]
+    # lanes by case: m general, 2 doublings, 1 cancel, 3 with infinity
+    # (products before the x-collision test: general 8, mixed 4)
+    rows = {}
+    for op, rhs, per, pre in (("add", p2, 16, 8), ("add_mixed", a2, 11, 4)):
+        kern = getattr(cuda_g1, op)
+        out = kern(spec, p1, rhs)
+        err = _equal(f"g1 {op}", out, kern.plain(spec, p1, rhs))
+        products = m * per + 2 * (pre + 7) + pre
+        bound = _g1_bound(products, 9 * M * 96, ADD_DEPTH + DOUBLE_DEPTH, int_rate, lat_ms)
+        rows[f"g1_{op}"] = _g1_row(op, (M, spec.num_limbs), err,
+                                   _ms(lambda: kern(spec, p1, rhs)),
+                                   _ms(lambda: kern.plain(spec, p1, rhs), reps=3), bound)
+    err = _equal("g1 double", cuda_g1.double(spec, p1), cuda_g1.double.plain(spec, p1))
+    rows["g1_double"] = _g1_row("double", (M, spec.num_limbs), err,
+                                _ms(lambda: cuda_g1.double(spec, p1)),
+                                _ms(lambda: cuda_g1.double.plain(spec, p1), reps=3),
+                                _g1_bound(M * 7, 6 * M * 96, DOUBLE_DEPTH, int_rate, lat_ms))
+
+    # scalar ladder: 1,024 random full-width scalars and 0, 1, r - 1
+    Fr = curve.fr
+    edge = np.stack([int_to_limbs(v, Fr.L) for v in (0, 1, Fr.p - 1)]).astype(np.int32)
+    sc = torch.cat([Fr.decode(Fr.random((1024,), 63)), torch.from_numpy(edge).to(curve.device)])
+    pts = map_points(lambda a: a[: sc.shape[0]], P)
+    out = cuda_g1.scalar_mul(spec, pts, sc)
+    t0 = time.perf_counter()
+    ref = cuda_g1.scalar_mul.plain(spec, pts, sc)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = _equal("g1 scalar_mul", out, ref)
+    # the add at a lane's first set bit meets infinity and costs no product
+    adds = [max(bin(int(v)).count("1") - 1, 0) for v in Fr.array_to_ints(Fr.encode(sc))]
+    nbits = 16 * Fr.L
+    lanes = sc.shape[0]
+    bound = _g1_bound(lanes * nbits * 7 + sum(adds) * 16, lanes * (2 * 288 + 4 * Fr.L),
+                      nbits * DOUBLE_DEPTH + max(adds) * ADD_DEPTH, int_rate, lat_ms)
+    rows["g1_scalar_mul"] = _g1_row("scalar_mul", (lanes, Fr.L), err,
+                                    _ms(lambda: cuda_g1.scalar_mul(spec, pts, sc)), plain_ms,
+                                    bound)
+
+    # accumulate on a forced x-collision: bucket keys 0 and 3 hold a point twice
+    bases = map_points(lambda a: a[:8], curve.normalize(P))
+    dev = curve.device
+    keys = torch.tensor([0, 0, 0, 1, 1, 2, 3, 3, 3, 3], dtype=torch.int64, device=dev)
+    pid = torch.tensor([0, 0, 1, 2, 3, 4, 5, 5, 6, 7], dtype=torch.int64, device=dev)
+    neg = torch.tensor([0, 0, 1, 0, 1, 0, 0, 0, 0, 1], dtype=torch.bool, device=dev)
+    out = cuda_g1.accumulate(spec, keys, pid, neg, bases, 4, 3)
+    _equal("g1 accumulate (collision)", out, cuda_g1.accumulate.plain(spec, keys, pid, neg, bases,
+                                                                     4, 3))
+    if out[1] <= 0:
+        raise AssertionError("forced x-collision: no lane repaired")
+    return rows, {"collision_repaired": out[1]}
+
+
+def time_recorded(calls, int_rate: float, lat_ms: float) -> dict:
+    """Kernel and plain times of the first recorded accumulate, Horner and
+    bucket-serial calls of the MSM paths, at the shapes the paths gave them."""
+    rows = {}
+    for key, args, _ in calls:
+        name = key[3:]
+        if key not in ("g1_accumulate", "g1_horner", "g1_bucket_serial") or key in rows:
+            continue
+        kern = getattr(cuda_g1, name)
+        spec = args[0]
+        if name == "accumulate":
+            _, keys, pid, neg, bases, T, steps = args
+            pad = torch.full((T * steps - keys.shape[0],), cuda_g1.SENTINEL, dtype=keys.dtype,
+                             device=keys.device)
+            lt = torch.cat([keys, pad]).reshape(T, steps).T
+            adds = int(((lt[1:] == lt[:-1]) & (lt[1:] != cuda_g1.SENTINEL)).sum())
+            E = keys.shape[0]
+            bound = _g1_bound(adds * 11, E * 17 + bases[0].shape[0] * 288 + T * steps * 288,
+                              0, int_rate, lat_ms)
+            shape = (E, T, steps)
+        elif name == "horner":
+            tot, c = args[1], args[2]
+            W, C = tot[0].shape[:2]
+            bound = _g1_bound(C * (W * c * 7 + (W - 1) * 16), (W * C + C) * 288,
+                              W * c * DOUBLE_DEPTH + (W - 1) * ADD_DEPTH, int_rate, lat_ms)
+            shape = (W, C, c)
+        else:
+            K, Mb = args[1][0].shape[:2]
+            bound = _g1_bound(Mb * 2 * (K - 2) * 16, K * Mb * 288, (K - 1) * ADD_DEPTH,
+                              int_rate, lat_ms)
+            shape = (K, Mb)
+        t0 = time.perf_counter()
+        kern.plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        rows[key] = _g1_row(name, shape, 0, _ms(lambda: kern(*args)), plain_ms, bound)
+    return rows
+
+
 # ---------------------------------------------------------------------------
-# Phases 3-5: the port's sumcheck paths
+# Phase 4: the MSM paths of the prove
+# ---------------------------------------------------------------------------
+def _open_levels(cfg=OPEN):
+    return [cfg["top"] >> k for k in range(cfg["top"].bit_length())]
+
+
+def srs_bases(curve) -> dict:
+    """The three paths' random bases, made as ``srs_random`` makes them."""
+    out = {"c_commit": rand_points_flat(curve, COMMIT["n"], COMMIT["seeds"][0]),
+           "d_commit": rand_points_flat(curve, DCOMMIT["n"], DCOMMIT["seeds"][0])}
+    flat = rand_points_flat(curve, sum(_open_levels()), OPEN["seeds"][0])
+    levels, off = [], 0
+    for n in _open_levels():
+        levels.append(map_points(lambda a, o=off, k=n: a[o:o + k], flat))
+        off += n
+    out["c_open"] = levels
+    return out
+
+
+def c_commit(curve, bases, cfg=COMMIT):
+    """Leader-mode ``d_msm`` of three wire polynomials' shares over the
+    packed bases (``c_commit``'s MSM).  Returns (net, run)."""
+    F = curve.fr
+    pp = PackedSharingParams(F, cfg["l"])
+    net = PartyNet(pp.n, mode="leader")
+    scal = F.decode(F.random((1, cfg["batch"], cfg["n"]), cfg["seeds"][1]))
+    return net, lambda: msm_module.d_msm(curve, pp, net, bases, scal)
+
+
+def d_commit(curve, bases, cfg=DCOMMIT):
+    F = curve.fr
+    scal = F.decode(F.random((1, cfg["batch"], cfg["n"]), cfg["seeds"][1]))
+    return lambda: msm_module.msm(curve, bases, scal)
+
+
+def c_open(curve, levels, cfg=OPEN):
+    """``msm_ragged`` over a halving q-vector chain of three polynomials."""
+    F = curve.fr
+    sizes = _open_levels(cfg)
+    scal = F.decode(F.random((cfg["batch"], sum(sizes)), cfg["seeds"][1]))
+    chunks = list(torch.split(scal, sizes, dim=1))
+
+    def run():
+        res = msm_module.msm_ragged(curve, levels, chunks)
+        return map_points(lambda *a: torch.stack(a), *res)  # [levels, batch]
+    return run
+
+
+# ---------------------------------------------------------------------------
+# Phases 3, 5, 6: the port's sumcheck paths
 # ---------------------------------------------------------------------------
 def gate_identity(F, cfg=GATE):
     """Leader-mode c_sumcheck_product on the six gate-identity table pairs."""
@@ -289,13 +573,14 @@ def _check_pin(name: str, got):
 class _Recorder:
     """Stands in for a module of the port while the main path runs: every
     attribute is the module's own, and each call to one of ``names`` is
-    appended to ``calls`` as (name, arguments, result).  It launches
-    nothing itself, so the wrappers' launch counts are unchanged."""
+    appended to ``calls`` as (prefix + name, arguments, result): the
+    kernel's name in the kernel table.  It launches nothing itself, so the
+    wrappers' launch counts are unchanged."""
 
-    def __init__(self, module, names, calls: list):
+    def __init__(self, module, prefix: str, names, calls: list):
         self._module = module
         for name in names:
-            setattr(self, name, self._keep(name, getattr(module, name), calls))
+            setattr(self, name, self._keep(prefix + name, getattr(module, name), calls))
 
     @staticmethod
     def _keep(name, fn, calls):
@@ -311,32 +596,42 @@ class _Recorder:
 
 @contextlib.contextmanager
 def recording():
-    """Keep every field-kernel and phase-kernel call the port makes inside
-    the block (the ``Field`` ops and the sumcheck rounds reach the kernels
-    only through these two module references)."""
+    """Keep every field-, phase- and G1-kernel call the port makes inside
+    the block (the ``Field`` ops, the sumcheck rounds, the ``Curve`` ops
+    and the MSM reach the kernels only through these module references)."""
     calls = []
-    fr_module.cuda_fr = _Recorder(cuda_fr, ("mul", "add", "sub"), calls)
-    sumcheck_module.cuda_sumcheck = _Recorder(cuda_sumcheck, ("product_phase",), calls)
+    fr_module.cuda_fr = _Recorder(cuda_fr, "fr_", ("mul", "add", "sub"), calls)
+    sumcheck_module.cuda_sumcheck = _Recorder(cuda_sumcheck, "sumcheck_", ("product_phase",), calls)
+    g1_module.cuda_g1 = msm_module.cuda_g1 = _Recorder(cuda_g1, "g1_", G1_WRAPPERS, calls)
     try:
         yield calls
     finally:
         fr_module.cuda_fr, sumcheck_module.cuda_sumcheck = cuda_fr, cuda_sumcheck
+        g1_module.cuda_g1 = msm_module.cuda_g1 = cuda_g1
 
 
 def replay(calls) -> dict:
     """Each recorded call's result against the plain version on the same
     operands.  Returns {kernel: calls replayed}; raises on any difference."""
     seen = {}
-    for name, args, out in calls:
-        if name == "product_phase":
+    for key, args, out in calls:
+        if key.startswith("g1_"):
+            try:
+                _equal(key, out, getattr(cuda_g1, key[3:]).plain(*args))
+            except AssertionError as exc:
+                shape = tuple(args[1][0].shape)
+                raise AssertionError(f"{exc} at {shape} on the main path") from None
+            seen[key] = seen.get(key, 0) + 1
+            continue
+        if key == "sumcheck_product_phase":
             F, f, g, ch, start = args
             ref = cuda_sumcheck.product_phase_plain(F.spec, f, g, ch, start)
             pairs = list(zip(out[0] + [out[1], out[2]], ref[0] + [ref[1], ref[2]]))
-            key, shapes = "sumcheck_product_phase", (tuple(f.shape), tuple(g.shape))
+            shapes = (tuple(f.shape), tuple(g.shape))
         else:
             spec, a, b = args
-            pairs = [(out, getattr(cuda_fr, f"{name}_plain")(spec, a, b))]
-            key, shapes = f"fr_{name}", (tuple(a.shape), tuple(b.shape))
+            pairs = [(out, getattr(cuda_fr, f"{key[3:]}_plain")(spec, a, b))]
+            shapes = (tuple(a.shape), tuple(b.shape))
         err = max(_max_abs_err(x, y) for x, y in pairs)
         if err:
             raise AssertionError(f"{key} at {shapes} on the main path: kernel differs "
@@ -345,15 +640,20 @@ def replay(calls) -> dict:
     return seen
 
 
+def _wrappers() -> dict:
+    out = {"fr_mul": cuda_fr.mul, "fr_add": cuda_fr.add, "fr_sub": cuda_fr.sub,
+           "sumcheck_product_phase": cuda_sumcheck.product_phase}
+    out.update({f"g1_{n}": getattr(cuda_g1, n) for n in G1_WRAPPERS})
+    return out
+
+
 def _reset_counts():
-    for fn in (cuda_fr.mul, cuda_fr.add, cuda_fr.sub, cuda_sumcheck.product_phase):
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
 def _counts() -> dict:
-    return {"fr_mul": cuda_fr.mul.launches, "fr_add": cuda_fr.add.launches,
-            "fr_sub": cuda_fr.sub.launches,
-            "sumcheck_product_phase": cuda_sumcheck.product_phase.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def main() -> int:
@@ -385,29 +685,71 @@ def main() -> int:
     print(json.dumps({"fq_instances": fq_rows}), flush=True)
     print(json.dumps({"phase_large": phase_big}), flush=True)
 
-    # 3. the main path, with launch counts around one call, whose kernel
-    # calls are then replayed through the plain versions
+    # G1 kernels against their plain versions (phase 2, continued)
+    curve = bls12_381_g1()
+    lat_ms = fq_latency_ms(curve)
+    g1_rows, collision = check_g1(curve, int_rate, lat_ms)
+    print(json.dumps({"fq_product_latency_ms": lat_ms, **collision}), flush=True)
+
+    # 3. the sumcheck main path, with launch counts around one call, whose
+    # kernel calls are then replayed through the plain versions
     _, net, gate = gate_identity(F)
     with recording() as calls:
         _reset_counts()
         proof = gate()
         torch.cuda.synchronize()
-        launches = _counts()
+        launches = {"gate_identity": _counts()}
     _check_pin("gate", limb_digest(proof))
-    replayed = replay(calls)
+    replayed = {"gate_identity": replay(calls)}
     del calls
     for name in ("fr_mul", "fr_add", "fr_sub"):
-        if replayed.get(name, 0) != launches[name]:
-            raise AssertionError(f"{name}: {launches[name]} launches, "
-                                 f"{replayed.get(name, 0)} calls replayed")
-    print(json.dumps({"main_path_replayed": replayed}), flush=True)
+        if replayed["gate_identity"].get(name, 0) != launches["gate_identity"][name]:
+            raise AssertionError(f"{name}: {launches['gate_identity'][name]} launches, "
+                                 f"{replayed['gate_identity'].get(name, 0)} calls replayed")
+    print(json.dumps({"main_path_replayed": replayed["gate_identity"]}), flush=True)
     paths = {"gate_identity_ms": _host_ms(gate, 5), "gate_comm": list(net.comm(0))}
 
-    # 4. the reference's sumcheck envelope
+    # 4. the MSM paths of the prove, each counted on its own
+    _reset_counts()
+    bases = srs_bases(curve)
+    torch.cuda.synchronize()
+    launches["srs_bases"] = _counts()
+    _check_pin("commit_bases", point_digest(curve, bases["c_commit"]))
+    net, run_a = c_commit(curve, bases["c_commit"])
+    runs = {"c_commit": run_a, "d_commit": d_commit(curve, bases["d_commit"]),
+            "c_open": c_open(curve, bases["c_open"])}
+    g1_times = {}
+    for name, run in runs.items():
+        record = name != "d_commit"
+        with (recording() if record else contextlib.nullcontext([])) as calls:
+            _reset_counts()
+            out = run()
+            torch.cuda.synchronize()
+            launches[name] = _counts()
+        _check_pin(name, point_digest(curve, out))
+        if name == "c_commit":
+            _check_pin("c_commit_comm", _comm(net))
+        if record:
+            replayed[name] = replay(calls)
+            for key, n in launches[name].items():
+                if key != "sumcheck_product_phase" and replayed[name].get(key, 0) != n:
+                    raise AssertionError(f"{name}: {key} launched {n} times, "
+                                         f"{replayed[name].get(key, 0)} calls replayed")
+            g1_times[name] = time_recorded(calls, int_rate, lat_ms)
+        del calls, out
+        paths[f"{name}_ms"] = _host_ms(run, 3)
+        paths[f"{name}_launches"] = {k: v for k, v in launches[name].items() if v}
+    print(json.dumps({"msm_replayed": {k: replayed[k] for k in ("c_commit", "c_open")},
+                      "msm_timed_at_path_shapes": g1_times}), flush=True)
+    del bases, runs, run_a
+    g1_rows.update(g1_times["c_commit"])
+    g1_rows["g1_bucket_serial"] = g1_times["c_open"]["g1_bucket_serial"]
+
+    # 5. the reference's sumcheck envelope
     run = envelope(F)
     _reset_counts()
     _check_pin("envelope", limb_digest(run()))
-    paths["c_sumcheck_product_n26_l32_launches"] = _counts()
+    paths["c_sumcheck_product_n26_l32_launches"] = {k: v for k, v in _counts().items() if v}
     paths["c_sumcheck_product_n26_l32_ms"] = _host_ms(run, 3)
     run = local(F)
     _check_pin("local", limb_digest(run()))
@@ -417,7 +759,7 @@ def main() -> int:
     paths["c_sumcheck_product_n30_l32_ms"] = _host_ms(top, 2)
     del top
 
-    # 5. sim mode, self-verifying
+    # 6. sim mode, self-verifying
     net, opened, mono, ch_ints, h = sim_mode(F)
     proof_ints = [tuple(int(v) for v in row) for row in F.array_to_ints(opened)]
     if not check_sumcheck_product(F, h, proof_ints, ch_ints):
@@ -428,21 +770,36 @@ def main() -> int:
     paths["sim_comm"] = list(_comm(net))
     print(json.dumps({"paths": paths}), flush=True)
 
-    # 6. kernel table
-    zero = [k for k, v in launches.items() if v == 0 or not replayed.get(k)]
+    # 7. kernel table: launches summed over the main paths (gate identity,
+    # SRS bases, c_commit, d_commit, c_open), each counted on its own
+    zero = [k for k in KERNELS
+            if not launches["gate_identity"][k] or not replayed["gate_identity"].get(k)]
+    msm_paths = ("srs_bases", "c_commit", "d_commit", "c_open")
+    zero += [k for k in MSM_PATH_KERNELS if not sum(launches[p][k] for p in msm_paths)]
     if zero:
-        raise AssertionError(f"kernels not launched on the main path: {zero}")
-    rows = {f"fr_{r['op']}": r for r in fr_rows}
-    rows["sumcheck_product_phase"] = phase_row
+        raise AssertionError(f"kernels not launched on the main paths: {zero}")
+    rows = {f"fr_{r['op']}": dict(r, **cuda_fr.attributes(F.spec, r["op"])) for r in fr_rows}
+    phase_attrs = cuda_sumcheck.attributes()
+    rows["sumcheck_product_phase"] = dict(phase_row, **phase_attrs["round"],
+                                          partial_reduce=phase_attrs["partial_reduce"])
+    rows.update(g1_rows)
     kernels = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces) in {**KERNELS, **G1_KERNELS}.items():
         r = rows[name]
-        kernels.append({
+        by_path = {p: n[name] for p, n in launches.items() if n[name]}
+        row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "launches": sum(by_path.values()), "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None, "shape": r["shape"], "main_path_calls_replayed": replayed[name],
-        })
+            "library_ms": None, "shape": r["shape"], "launches_by_path": by_path,
+            "main_path_calls_replayed": sum(v.get(name, 0) for v in replayed.values()),
+            "registers": r["registers"], "spill_bytes": r["spill_bytes"],
+        }
+        if "bound_kind" in r:
+            row["bound_kind"] = r["bound_kind"]
+        if name in ("g1_add_mixed", "g1_double"):
+            row["note"] = "off the leader MSM path; held by phase 2 alone"
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .curves.g1 import PointJ
 from .device import DEFAULT, resolve
 from .pss.pss import PackedSharingParams
 
@@ -28,6 +29,17 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype != torch.int32:
         raise TypeError(f"expected an int32 limb tensor, got {t.dtype}")
     return t.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+def points_from_numpy(pt, device=DEFAULT) -> PointJ:
+    """Three ``uint32 [..., 24]`` coordinate arrays (such as a JAX
+    ``PointJ`` of SRS bases, as numpy) -> ``PointJ`` on ``device``."""
+    return PointJ(*(from_numpy(np.asarray(a), device) for a in pt))
+
+
+def points_to_numpy(pt) -> tuple:
+    """``PointJ`` -> (x, y, z) ``uint32`` ndarrays with the same bits."""
+    return tuple(to_numpy(a) for a in pt)
 
 
 def pss_matrices(pp: PackedSharingParams) -> dict[str, np.ndarray]:

@@ -87,3 +87,23 @@ extern "C" int sczk_fr_binary(int op, int nwords, const void* a, const void* b, 
   if (nwords == 12) return (int)launch<12>(op, a, b, out, m, period_a, period_b, c, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// Registers and local (spill) bytes per thread of the kernel for op and
+// nwords, as sczk_fr_binary takes them.  out: int32 [2].
+extern "C" int sczk_fr_attrs(int op, int nwords, int* out) {
+  const void* fns[2][3] = {
+      {reinterpret_cast<const void*>(&binary_kernel<8, 0>),
+       reinterpret_cast<const void*>(&binary_kernel<8, 1>),
+       reinterpret_cast<const void*>(&binary_kernel<8, 2>)},
+      {reinterpret_cast<const void*>(&binary_kernel<12, 0>),
+       reinterpret_cast<const void*>(&binary_kernel<12, 1>),
+       reinterpret_cast<const void*>(&binary_kernel<12, 2>)},
+  };
+  if (op < 0 || op > 2 || (nwords != 8 && nwords != 12)) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, fns[nwords == 12][op]);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  return 0;
+}

@@ -188,3 +188,17 @@ extern "C" int sczk_partial_reduce(const void* partial, int nblk, void* msgs, in
       (unsigned)rounds, (unsigned)r, fc);
   return (int)cudaGetLastError();
 }
+
+// Registers and local (spill) bytes per thread: which 0 is the round
+// kernel, 1 the partial reduce.  out: int32 [2].
+extern "C" int sczk_sumcheck_attrs(int which, int* out) {
+  if (which < 0 || which > 1) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(
+      &a, which == 0 ? reinterpret_cast<const void*>(&product_round_kernel)
+                     : reinterpret_cast<const void*>(&partial_reduce_kernel));
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  return 0;
+}

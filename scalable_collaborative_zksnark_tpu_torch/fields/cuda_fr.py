@@ -12,9 +12,10 @@ canonical.  ``mul``/``add``/``sub`` broadcast their operands as
 version (``*_plain``), a CUDA tensor through the kernel; a failed build or
 launch raises.  Each wrapper counts its kernel launches in ``.launches``.
 
-The plain versions compute in ``int64`` on 16-bit limbs (CIOS for the
-product); they are the reference the tests and ``chip_smoke.py`` hold the
-kernels to, and nothing on the card's path calls them.
+The plain versions compute in ``int64`` on 16-bit limbs (Montgomery
+reduction for the product); they are the reference the tests and
+``chip_smoke.py`` hold the kernels to, and nothing on the card's path
+calls them.
 """
 
 from __future__ import annotations
@@ -47,14 +48,20 @@ def normalize(cols: torch.Tensor):
     """Signed int64 columns (base 2^16) -> (limbs [..., L], carry [...]).
 
     The carry is the signed value at position L (negative when the
-    columns sum to a negative number)."""
-    c = torch.zeros(cols.shape[:-1], dtype=torch.int64, device=cols.device)
-    limbs = []
-    for j in range(cols.shape[-1]):
-        s = cols[..., j] + c
-        limbs.append(s & LIMB_MASK)
-        c = s >> LIMB_BITS
-    return torch.stack(limbs, dim=-1), c
+    columns sum to a negative number).  Carries move up one column per
+    round, all columns at once, until none is left: each round keeps the
+    value, and the limbs in [0, 2^16) with their carry are its only such
+    form, so the result is that of a serial carry chain in a few rounds
+    (a chain of 0xFFFF limbs takes one round per limb)."""
+    x = cols.movedim(-1, 0).clone()
+    top = torch.zeros(cols.shape[:-1], dtype=torch.int64, device=cols.device)
+    while True:
+        hi = x >> LIMB_BITS
+        if not bool(hi.any()):
+            return x.movedim(0, -1), top
+        x &= LIMB_MASK
+        x[1:] += hi[:-1]
+        top += hi[-1]
 
 
 def cond_sub_p(spec: FieldSpec, limbs: torch.Tensor, extra: torch.Tensor) -> torch.Tensor:
@@ -84,22 +91,25 @@ def sub_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
 
 
 def mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """CIOS a*b*R^-1 mod p on 16-bit limbs with int64 columns.
+    """Montgomery a*b*R^-1 mod p on 16-bit limbs with int64 columns.
 
-    Iteration i adds a_i*b and m*p (each product < 2^32) at column offset
-    i, so no column passes L * 2^33 + carries < 2^39; the result occupies
-    columns L..2L and is below 2p."""
+    The product's 2L-1 columns (each < L * 2^32) are formed at once; then
+    REDC step i adds m*p (each product < 2^32) at column offset i and
+    carries column i up, so no column passes 2L * 2^32 + carries < 2^39
+    (and t_i * n0 < 2^55); the result occupies columns L..2L and is below
+    2p.  The limb axis is kept first so that each step's rows are views."""
     a, b = _to64(a, b)
     L = spec.num_limbs
-    p = limbs_const(spec.modulus, L, a.device)
-    n0 = spec.n0inv
-    t = torch.zeros(a.shape[:-1] + (2 * L + 1,), dtype=torch.int64, device=a.device)
+    batch = a.shape[:-1]
+    p = limbs_const(spec.modulus, L, a.device).reshape((L,) + (1,) * len(batch))
+    prod = torch.nn.functional.pad(a[..., :, None] * b[..., None, :], (0, L))  # [..., L, 2L]
+    diag = prod.reshape(batch + (2 * L * L,))[..., : 2 * L * L - L].reshape(batch + (L, 2 * L - 1))
+    t = torch.nn.functional.pad(diag.sum(-2), (0, 2)).movedim(-1, 0).contiguous()  # [2L+1, ...]
     for i in range(L):
-        t[..., i : i + L] += a[..., i : i + 1] * b
-        m = ((t[..., i] & LIMB_MASK) * n0) & LIMB_MASK
-        t[..., i : i + L] += m[..., None] * p
-        t[..., i + 1] += t[..., i] >> LIMB_BITS
-    limbs, carry = normalize(t[..., L:])
+        m = (t[i] * spec.n0inv) & LIMB_MASK
+        t[i : i + L].addcmul_(p, m)
+        t[i + 1] += t[i] >> LIMB_BITS
+    limbs, carry = normalize(t[L:].movedim(0, -1))
     return cond_sub_p(spec, limbs[..., :L], limbs[..., L] + (carry << LIMB_BITS)).to(torch.int32)
 
 
@@ -107,7 +117,8 @@ def mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
 # CUDA kernels
 # ---------------------------------------------------------------------------
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"sczk_fr_binary": [_I, _I, _VP, _VP, _VP, _I, _I, _I, _VP, _VP]}
+_SIGNATURES = {"sczk_fr_binary": [_I, _I, _VP, _VP, _VP, _I, _I, _I, _VP, _VP],
+               "sczk_fr_attrs": [_I, _I, _VP]}
 
 
 @functools.lru_cache(maxsize=None)
@@ -182,6 +193,16 @@ def add(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def sub(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a - b mod p: kernel on CUDA, plain on the CPU."""
     return sub_plain(spec, a, b) if _on_cpu(a, b) else _launch(sub, spec, a, b)
+
+
+def attributes(spec: FieldSpec, op: str) -> dict:
+    """Registers and spill (local) bytes per thread of ``op``'s kernel for
+    ``spec``'s width, from the card."""
+    out = np.zeros(2, dtype=np.int32)
+    lib = cuda_build.library("fr", _SIGNATURES)
+    cuda_build.check(lib.sczk_fr_attrs(_OPS[op], spec.num_words, out.ctypes.data),
+                     f"fr attributes of {op}")
+    return {"registers": int(out[0]), "spill_bytes": int(out[1])}
 
 
 mul.launches = add.launches = sub.launches = 0

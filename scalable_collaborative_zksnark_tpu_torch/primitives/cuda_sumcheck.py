@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import cuda_build
@@ -32,6 +33,7 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "sczk_product_round": [_VP, _VP, _I, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _VP, _VP],
     "sczk_partial_reduce": [_VP, _I, _VP, _I, _I, _I, _VP, _VP],
+    "sczk_sumcheck_attrs": [_I, _VP],
 }
 
 
@@ -123,6 +125,19 @@ def product_phase(F: Field, evals_f: torch.Tensor, evals_g: torch.Tensor,
     if evals_f.device.type == "cpu" and evals_g.device.type == "cpu":
         return product_phase_plain(F.spec, evals_f, evals_g, challenges, start)
     return _launch(F.spec, evals_f, evals_g, challenges, start)
+
+
+def attributes() -> dict:
+    """Registers and spill (local) bytes per thread of the round kernel and
+    the partial reduce, from the card."""
+    lib = cuda_build.library("sumcheck", _SIGNATURES)
+    attrs = {}
+    for which, name in enumerate(("round", "partial_reduce")):
+        out = np.zeros(2, dtype=np.int32)
+        cuda_build.check(lib.sczk_sumcheck_attrs(which, out.ctypes.data),
+                         f"sumcheck attributes of {name}")
+        attrs[name] = {"registers": int(out[0]), "spill_bytes": int(out[1])}
+    return attrs
 
 
 product_phase.launches = 0

@@ -15,7 +15,9 @@ Mirrors the JAX package's ``pss/pss.py`` (itself the reference's
 
 Every op is linear, so each is also exposed as a host-built matrix over
 Python ints (``*_matrix``); ``convert.check_pss_matrices`` holds them to
-the JAX package's.  The group (G1) and G2 methods come with the G1 slice.
+the JAX package's.  The G1 methods apply the same maps to points
+(``Curve.linear_map``); the G2 methods, which need host G2 arithmetic,
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -182,3 +184,17 @@ class PackedSharingParams:
     def pack_single_vector(self) -> np.ndarray:
         """[n] object-int vector u: shares_j = u_j * secret."""
         return self._mats["pack_single"]
+
+    # ------------------------------------------------------------------
+    # Group-element path (G1 points; see curves/g1.py)
+    # ------------------------------------------------------------------
+    def pack_from_public_group(self, curve, secrets):
+        """[..., l] points -> [..., n] share points: the field path's
+        linear map, as a fixed-scalar combination per output share."""
+        return curve.linear_map(self.pack_matrix(), secrets)
+
+    def unpack_group(self, curve, shares):
+        return curve.linear_map(self.unpack_matrix(), shares)
+
+    def unpack2_group(self, curve, shares):
+        return curve.linear_map(self.unpack2_matrix(), shares)

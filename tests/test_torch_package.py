@@ -11,6 +11,8 @@ import torch
 
 import chip_smoke
 from scalable_collaborative_zksnark_tpu_torch import convert, cuda_build
+from scalable_collaborative_zksnark_tpu_torch.curves import cuda_g1
+from scalable_collaborative_zksnark_tpu_torch.curves.g1 import PointJ, bls12_381_g1
 from scalable_collaborative_zksnark_tpu_torch.examples import sumcheck as example
 from scalable_collaborative_zksnark_tpu_torch.fields import cuda_fr
 from scalable_collaborative_zksnark_tpu_torch.fields import fr as fr_module
@@ -59,7 +61,12 @@ def test_entry_points_default_to_cuda(no_cuda):
         example.main(["--n", "4", "--l", "1"])
     with pytest.raises(RuntimeError, match="cuda"):
         convert.from_numpy(np.zeros((2, 16), np.uint32))
+    with pytest.raises(RuntimeError, match="cuda"):
+        bls12_381_g1()
+    with pytest.raises(RuntimeError, match="cuda"):
+        convert.points_from_numpy([np.zeros((2, 24), np.uint32)] * 3)
     assert get_field("bls12_381_fr", device="cpu").device.type == "cpu"
+    assert bls12_381_g1("cpu").device.type == "cpu"
     assert convert.from_numpy(np.zeros((2, 16), np.uint32), "cpu").device.type == "cpu"
 
 
@@ -89,6 +96,27 @@ def test_cpu_calls_launch_nothing():
                       cuda_sumcheck.product_phase.launches)
 
 
+def _g1_launches():
+    return tuple(getattr(cuda_g1, n).launches for n in chip_smoke.G1_WRAPPERS)
+
+
+def test_cpu_g1_calls_launch_nothing():
+    """The G1 wrappers on CPU tensors run their plain versions and count nothing."""
+    C = bls12_381_g1("cpu")
+    spec = C.fq.spec
+    before = _g1_launches(), cuda_g1.accumulate.repaired
+    P = C.double(C.from_affine_ints([None, None]))
+    C.add(P, P)
+    C.add_mixed(P, P)
+    C.scalar_mul(P, torch.zeros((2, 1), dtype=torch.int32))
+    grid = PointJ(*(a.reshape(2, 1, -1) for a in P))
+    cuda_g1.horner(spec, grid, 1)
+    cuda_g1.bucket_serial(spec, grid)
+    keys = torch.zeros(2, dtype=torch.int64)
+    cuda_g1.accumulate(spec, keys, keys, keys.bool(), P, 1, 2)
+    assert (_g1_launches(), cuda_g1.accumulate.repaired) == before
+
+
 def test_chip_smoke_replays_main_path_calls():
     """chip_smoke.py's record-and-replay of the main path's kernel calls,
     run on the CPU at a small gate-identity shape."""
@@ -101,7 +129,7 @@ def test_chip_smoke_replays_main_path_calls():
     assert set(replayed) == set(chip_smoke.KERNELS)
     assert replayed["sumcheck_product_phase"] == 2  # phase 1 and phase 2
     # a result that differs from the plain version is caught
-    name, (spec, a, b), _ = next(c for c in calls if c[0] == "mul")
+    name, (spec, a, b), _ = next(c for c in calls if c[0] == "fr_mul")
     with pytest.raises(AssertionError, match="fr_mul"):
         chip_smoke.replay([(name, (spec, a, b), cuda_fr.add(spec, a, b))])
 
@@ -114,6 +142,13 @@ def test_non_cuda_tensor_is_refused():
         cuda_fr.mul(spec, a, a)
     with pytest.raises(TypeError):
         cuda_sumcheck.product_phase(get_field("bls12_381_fr", device="cpu"), a, a, a, 0)
+    spec = get_field("bls12_381_fq", device="cpu").spec
+    pt = (torch.zeros((4, 24), dtype=torch.int32, device="meta"),) * 3
+    for call in (lambda: cuda_g1.add(spec, pt, pt), lambda: cuda_g1.double(spec, pt),
+                 lambda: cuda_g1.horner(spec, pt, 2), lambda: cuda_g1.bucket_serial(spec, pt),
+                 lambda: cuda_g1.scalar_mul(spec, pt, a)):
+        with pytest.raises(TypeError):
+            call()
 
 
 def test_kernel_operand_periods():
@@ -133,6 +168,10 @@ def test_field_consts():
     assert sum(int(w) << (32 * k) for k, w in enumerate(c[:-1])) == spec.modulus
     assert (int(c[0]) * int(c[-1])) % (1 << 32) == (1 << 32) - 1  # n0 = -p^-1 mod 2^32
     assert cuda_build._target("fr").parent == PORT / "build"
+    g = cuda_g1.g1_consts(spec)
+    assert len(g) == 2 * spec.num_words + 1 and list(g[: spec.num_words + 1]) == list(c)
+    assert sum(int(w) << (32 * k) for k, w in enumerate(g[spec.num_words + 1:])) == spec.r
+    assert set(cuda_build.SOURCES) == {"fr", "sumcheck", "g1"}
 
 
 def test_timer_spans(capsys):
@@ -160,3 +199,8 @@ def test_card_calls_count_launches(cuda):
     cuda_sumcheck.product_phase(F, f, g, ch, 0)
     assert (cuda_fr.mul.launches, cuda_sumcheck.product_phase.launches) == (
         before[0] + 1, before[1] + 6)  # one mul; two launches per round of M = 8
+    C = bls12_381_g1(cuda)
+    before = cuda_g1.add.launches, cuda_g1.double.launches
+    P = C.double(C.from_affine_ints([None, None]))
+    C.add(P, P)
+    assert (cuda_g1.add.launches, cuda_g1.double.launches) == (before[0] + 1, before[1] + 1)
