@@ -13,7 +13,9 @@ Phases (any failure raises and exits non-zero):
    scalar ladder on 1,024 full scalars and 0, 1, r - 1, the accumulate on
    a forced x-collision) bit for bit against its plain PyTorch version on
    the card, and time both (CUDA events, median of 10 or more for the
-   kernels); print each kernel's registers and spill bytes;
+   kernels); print each kernel's registers and spill bytes, and the
+   latency of one dependent multiply-add (a one-thread chain) that the
+   chain bounds of Horner, bucket-serial and the ladder are built on;
 3. the sumcheck main path: ``c_sumcheck_product`` in leader mode at the
    gate-identity shape of the n = 16, l = 8 prove, ``[1, 6, 2^13, 16]``
    tables; launch counts are read around this one call; digest pinned;
@@ -156,11 +158,10 @@ def _smi(query: str) -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def _ms(fn, reps: int = 10, warm: bool = True) -> float:
+def _ms(fn, reps: int = 10) -> float:
     """Median milliseconds of ``reps`` runs of ``fn``, each between CUDA
-    events (after one warm-up run unless ``warm`` is False)."""
-    if warm:
-        fn()
+    events (after one warm-up run)."""
+    fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -203,23 +204,24 @@ def _bound_ms(nbytes: float, muls: float, int_rate: float):
 
 
 def _equal(name: str, out, ref) -> int:
-    """0 if every tensor and int of ``out`` equals ``ref`` (nested tuples),
-    else raise naming the kernel."""
+    """The largest difference between ``out`` and ``ref`` over every tensor
+    and int (nested tuples); raises naming the kernel if it is not 0."""
     if isinstance(out, torch.Tensor):
         err = _max_abs_err(out, ref)
     elif isinstance(out, (tuple, list)):
-        return max((_equal(name, a, b) for a, b in zip(out, ref, strict=True)), default=0)
+        err = max((_equal(name, a, b) for a, b in zip(out, ref, strict=True)), default=0)
     else:
         err = abs(out - ref)
     if err:
         raise AssertionError(f"{name}: kernel differs from plain version by {err}")
-    return 0
+    return err
 
 
 def _g1_bound(products: float, nbytes: float, chain: float, int_rate: float, lat_ms: float):
     """(bound_ms, bound_by, kind): the larger of bytes over HBM rate,
     products * 588 multiplies over the integer rate, and the longest
-    per-thread chain of dependent products times one product's latency."""
+    per-thread chain of dependent products times the least time of one
+    product along a chain (``chain_latency``)."""
     bound, by = _bound_ms(nbytes, products * FQ_MULS, int_rate)
     if chain * lat_ms > bound:
         return chain * lat_ms, "operations", "dependent-product chain"
@@ -324,20 +326,58 @@ def rand_points_flat(curve, count: int, seed: int) -> PointJ:
     return curve.normalize(map_points(lambda a: a.reshape(rows * side, -1)[:count], grid))
 
 
-def fq_latency_ms(curve) -> float:
-    """Latency of one Fq product on the card: the time of a one-thread
-    chain of 2^17 dependent products less that of 2^16, over 2^16.
-    The chain's result is checked against host integers."""
+def cios_depth(words: int) -> int:
+    """Dependent multiply-adds on the longest path through one CIOS product
+    on ``words`` words (``fmul`` of csrc/fr.cuh): each word step
+    c += a * b + t and each m = t0 * n0 counts one.  Carry-only adds and
+    the final conditional subtract count nothing, so this is a lower bound."""
+    t = [0] * (words + 2)  # step at which each word of t is ready
+    for _ in range(words):
+        c = 0
+        for j in range(words):  # t += a * b_i
+            c = t[j] = max(c, t[j]) + 1
+        t[words] = t[words + 1] = max(c, t[words])
+        c = t[0] + 2  # m = t0 * n0, then m * p0 + t0
+        for j in range(1, words):  # (t + m * p) >> 32
+            c = t[j - 1] = max(c, t[j]) + 1
+        t[words - 1] = max(c, t[words])
+        t[words] = max(t[words + 1], t[words - 1])
+    return max(t[: words + 1])
+
+
+def _chain_step_ms(fn, n: int) -> float:
+    """Milliseconds per step of a one-thread chain: the time of 2n steps
+    less that of n, over n."""
+    return (_ms(lambda: fn(2 * n), reps=3) - _ms(lambda: fn(n), reps=3)) / n
+
+
+def chain_latency(curve) -> tuple[float, dict]:
+    """(ms, diagnostics): the least time of one Fq product along a
+    thread's dependency chain, ``cios_depth(12)`` times the latency of one
+    dependent 32x32->64 multiply-add measured on the card (a one-thread
+    IMAD.WIDE chain, which uses no field code).  The diagnostics add what
+    one product of csrc/fr.cuh takes in a one-thread chain: what this
+    implementation reaches, not a bound.  Both chains' results are checked
+    against host integers."""
     Fq = curve.fq
-    xy = Fq.random((2,), 71)
-    out = cuda_g1.fq_mul_chain(Fq.spec, xy, 5)
-    x, y = (int(v) for v in Fq.array_to_ints(xy))
+    c, y = 0x9E3779B9, 0x7F4A7C15
+    xy = torch.from_numpy(np.array([c, y], dtype=np.uint32).view(np.int32)).to(curve.device)
+    for _ in range(5):
+        c = ((c & 0xFFFFFFFF) * y + c) & 0xFFFFFFFFFFFFFFFF
+    if int(cuda_g1.imad_chain(xy, 5).item()) & 0xFFFFFFFFFFFFFFFF != c:
+        raise AssertionError("imad_chain: wrong result")
+    step_ms = _chain_step_ms(lambda k: cuda_g1.imad_chain(xy, k), 1 << 20)
+    fxy = Fq.random((2,), 71)
+    out = cuda_g1.fq_mul_chain(Fq.spec, fxy, 5)
+    x, y = (int(v) for v in Fq.array_to_ints(fxy))
     if int(Fq.array_to_ints(out)) != x * pow(y, 5, Fq.p) % Fq.p:
         raise AssertionError("fq_mul_chain: wrong product")
-    n = 1 << 16
-    t1 = _ms(lambda: cuda_g1.fq_mul_chain(Fq.spec, xy, n), reps=3)
-    t2 = _ms(lambda: cuda_g1.fq_mul_chain(Fq.spec, xy, 2 * n), reps=3)
-    return (t2 - t1) / n
+    depth = cios_depth(Fq.spec.num_words)
+    diag = {"imad_wide_latency_ns": step_ms * 1e6, "cios_depth": depth,
+            "fq_product_chain_bound_us": depth * step_ms * 1e3,
+            "fq_product_fmul_chain_us": _chain_step_ms(
+                lambda k: cuda_g1.fq_mul_chain(Fq.spec, fxy, k), 1 << 16) * 1e3}
+    return depth * step_ms, diag
 
 
 def _edge_points(curve, P: PointJ, Q: PointJ):
@@ -415,9 +455,10 @@ def check_g1(curve, int_rate: float, lat_ms: float) -> dict:
     return rows, {"collision_repaired": out[1]}
 
 
-def time_recorded(calls, int_rate: float, lat_ms: float) -> dict:
+def time_recorded(calls, errs: dict, int_rate: float, lat_ms: float) -> dict:
     """Kernel and plain times of the first recorded accumulate, Horner and
-    bucket-serial calls of the MSM paths, at the shapes the paths gave them."""
+    bucket-serial calls of the MSM paths, at the shapes the paths gave them;
+    each row's error is the largest the replay of that path found."""
     rows = {}
     for key, args, _ in calls:
         name = key[3:]
@@ -450,7 +491,7 @@ def time_recorded(calls, int_rate: float, lat_ms: float) -> dict:
         kern.plain(*args)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        rows[key] = _g1_row(name, shape, 0, _ms(lambda: kern(*args)), plain_ms, bound)
+        rows[key] = _g1_row(name, shape, errs[key], _ms(lambda: kern(*args)), plain_ms, bound)
     return rows
 
 
@@ -610,18 +651,20 @@ def recording():
         g1_module.cuda_g1 = msm_module.cuda_g1 = cuda_g1
 
 
-def replay(calls) -> dict:
+def replay(calls) -> tuple[dict, dict]:
     """Each recorded call's result against the plain version on the same
-    operands.  Returns {kernel: calls replayed}; raises on any difference."""
-    seen = {}
+    operands.  Returns ({kernel: calls replayed}, {kernel: largest
+    difference found}); raises on any difference."""
+    seen, errs = {}, {}
     for key, args, out in calls:
         if key.startswith("g1_"):
             try:
-                _equal(key, out, getattr(cuda_g1, key[3:]).plain(*args))
+                err = _equal(key, out, getattr(cuda_g1, key[3:]).plain(*args))
             except AssertionError as exc:
                 shape = tuple(args[1][0].shape)
                 raise AssertionError(f"{exc} at {shape} on the main path") from None
             seen[key] = seen.get(key, 0) + 1
+            errs[key] = max(errs.get(key, 0), err)
             continue
         if key == "sumcheck_product_phase":
             F, f, g, ch, start = args
@@ -637,7 +680,8 @@ def replay(calls) -> dict:
             raise AssertionError(f"{key} at {shapes} on the main path: kernel differs "
                                  f"from plain version by {err}")
         seen[key] = seen.get(key, 0) + 1
-    return seen
+        errs[key] = max(errs.get(key, 0), err)
+    return seen, errs
 
 
 def _wrappers() -> dict:
@@ -687,9 +731,9 @@ def main() -> int:
 
     # G1 kernels against their plain versions (phase 2, continued)
     curve = bls12_381_g1()
-    lat_ms = fq_latency_ms(curve)
+    lat_ms, chain_diag = chain_latency(curve)
     g1_rows, collision = check_g1(curve, int_rate, lat_ms)
-    print(json.dumps({"fq_product_latency_ms": lat_ms, **collision}), flush=True)
+    print(json.dumps({**chain_diag, **collision}), flush=True)
 
     # 3. the sumcheck main path, with launch counts around one call, whose
     # kernel calls are then replayed through the plain versions
@@ -700,7 +744,7 @@ def main() -> int:
         torch.cuda.synchronize()
         launches = {"gate_identity": _counts()}
     _check_pin("gate", limb_digest(proof))
-    replayed = {"gate_identity": replay(calls)}
+    replayed = {"gate_identity": replay(calls)[0]}
     del calls
     for name in ("fr_mul", "fr_add", "fr_sub"):
         if replayed["gate_identity"].get(name, 0) != launches["gate_identity"][name]:
@@ -730,12 +774,12 @@ def main() -> int:
         if name == "c_commit":
             _check_pin("c_commit_comm", _comm(net))
         if record:
-            replayed[name] = replay(calls)
+            replayed[name], errs = replay(calls)
             for key, n in launches[name].items():
                 if key != "sumcheck_product_phase" and replayed[name].get(key, 0) != n:
                     raise AssertionError(f"{name}: {key} launched {n} times, "
                                          f"{replayed[name].get(key, 0)} calls replayed")
-            g1_times[name] = time_recorded(calls, int_rate, lat_ms)
+            g1_times[name] = time_recorded(calls, errs, int_rate, lat_ms)
         del calls, out
         paths[f"{name}_ms"] = _host_ms(run, 3)
         paths[f"{name}_launches"] = {k: v for k, v in launches[name].items() if v}

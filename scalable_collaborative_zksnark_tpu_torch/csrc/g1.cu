@@ -21,7 +21,9 @@
 // accumulate have enough lanes to be bound by integer-multiply
 // throughput; Horner (C lanes, W (c + 1) dependent point ops),
 // bucket-serial (2 (K - 2) dependent adds) and the scalar ladder are
-// bound by the latency of their chain when they have few lanes.
+// bound by the latency of their chain when they have few lanes: the
+// dependent products times the depth of one CIOS product in dependent
+// multiply-adds times one multiply-add's latency (imad_chain_kernel).
 // One point is 288 bytes and each thread reads its own rows: in the
 // accumulate kernel lane t's entries are `steps` apart, so its key and
 // index loads do not coalesce, and its base loads are gathers (the base
@@ -172,10 +174,22 @@ __global__ void __launch_bounds__(kThreads)
   store_point(out, lane, tot);
 }
 
+// One thread runs n dependent 32x32->64 multiply-adds, c = lo(c) * y + c
+// mod 2^64 (one IMAD.WIDE.U32 each): the kernel's time over n is the
+// latency of one dependent step of a CIOS product on the card, the unit
+// of the chain bounds of the latency-bound kernels above.  A probe for
+// that bound; it replaces no TPU kernel.
+__global__ void imad_chain_kernel(const uint32_t* a, int n, uint64_t* out) {
+  uint64_t c = a[0];
+  const uint32_t y = a[1];
+  for (int i = 0; i < n; ++i) c = (uint64_t)(uint32_t)c * y + c;
+  *out = c;
+}
+
 // One thread multiplies x by y n times, each product depending on the
-// last: the kernel's time over n is the latency of one Fq product, the
-// unit of the chain bounds of the latency-bound kernels above.  A probe
-// for that bound; it replaces no TPU kernel.
+// last: the time over n is what one Fq product of fr.cuh costs in a
+// single thread.  A diagnostic beside the chain bound; it replaces no
+// TPU kernel.
 __global__ void fq_mul_chain_kernel(const int32_t* a, int n, int32_t* out, FieldConst<NQ> f) {
   uint32_t x[NQ], y[NQ];
   load_limbs<NQ>(a, x);
@@ -272,6 +286,14 @@ extern "C" int sczk_fq_mul_chain(const void* a, int n, void* out, const void* co
   if (n < 0) return (int)cudaErrorInvalidValue;
   fq_mul_chain_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(a), n, static_cast<int32_t*>(out), consts_of(consts).f);
+  return (int)cudaGetLastError();
+}
+
+// a: uint32 [2] (x, y); out: uint64 [1], the chain's c after n steps.
+extern "C" int sczk_imad_chain(const void* a, int n, void* out, void* stream) {
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  imad_chain_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(a), n, static_cast<uint64_t*>(out));
   return (int)cudaGetLastError();
 }
 

@@ -47,6 +47,7 @@ _SIGNATURES = {
     "sczk_g1_bucket_serial": [_VP, _VP, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP],
     "sczk_g1_attrs": [_I, _VP],
     "sczk_fq_mul_chain": [_VP, _I, _VP, _VP, _VP],
+    "sczk_imad_chain": [_VP, _I, _VP, _VP],
 }
 ATTR_KERNELS = ("add", "add_mixed", "double", "accumulate", "scalar_mul", "horner",
                 "bucket_serial")
@@ -404,13 +405,28 @@ def bucket_serial(spec: FieldSpec, buckets: tuple) -> tuple:
 
 def fq_mul_chain(spec: FieldSpec, xy: torch.Tensor, n: int) -> torch.Tensor:
     """x * y^n * R^-n by n dependent Montgomery products in one thread, for
-    ``xy`` [2, 24] on the card: a probe of one Fq product's latency."""
+    ``xy`` [2, 24] on the card: what one Fq product of csrc/fr.cuh costs in
+    a single thread (a diagnostic; the chain bounds use ``imad_chain``)."""
     _check(spec, xy)
     xy = _operand(xy, xy.shape)
     out = torch.empty(spec.num_limbs, dtype=torch.int32, device=xy.device)
     cuda_build.check(_lib().sczk_fq_mul_chain(xy.data_ptr(), n, out.data_ptr(),
                                               g1_consts(spec).ctypes.data, _stream(xy)),
                      "fq mul chain")
+    return out
+
+
+def imad_chain(xy: torch.Tensor, n: int) -> torch.Tensor:
+    """c = lo(c) * y + c mod 2^64, n times from c = x, in one thread, for
+    ``xy`` int32 [2] on the card (the bits of uint32 x, y): a probe of one
+    dependent 32x32->64 multiply-add's latency.  Returns c's bits, int64 [1]."""
+    if xy.device.type != "cuda" or xy.dtype != torch.int32 or xy.shape != (2,):
+        raise TypeError(f"imad_chain takes a CUDA int32 [2], got {xy.device} {xy.dtype} "
+                        f"{tuple(xy.shape)}")
+    xy = xy.contiguous()
+    out = torch.empty(1, dtype=torch.int64, device=xy.device)
+    cuda_build.check(_lib().sczk_imad_chain(xy.data_ptr(), n, out.data_ptr(), _stream(xy)),
+                     "imad chain")
     return out
 
 

@@ -104,13 +104,6 @@ class Curve:
         """p1 (Jacobian) + p2 with z2 in {0, 1} (affine or infinity)."""
         return PointJ(*cuda_g1.add_mixed(self.fq.spec, p1, p2))
 
-    def add_mixed_reset_lazy(self, p1: PointJ, p2: PointJ, same):
-        """(same ? p1 + p2 : p2, flag).  The add is complete (an x-collision
-        doubles), so no lane is left to repair and the flag is all False,
-        as the JAX package's version without Pallas returns it."""
-        out = self.select(same, self.add_mixed(p1, p2), p2)
-        return out, torch.zeros(out.x.shape[:-1], dtype=torch.bool, device=out.x.device)
-
     def normalize(self, pt: PointJ) -> PointJ:
         """Jacobian -> affine-or-infinity (z in {0, 1}), batched: one batch
         inversion over the flattened points; infinity becomes (0, 1, 0)."""

@@ -4,7 +4,8 @@ the plain versions of the Horner and bucket-serial kernels.
 Same seeded points through the JAX package and the port (its plain
 versions, on the CPU).  The JAX package's ``add``, ``add_mixed``,
 ``double`` and ``add_mixed_reset_lazy`` run their plain jnp formulas on the
-CPU and are compared bit for bit in Jacobian limbs.  Its ``scalar_mul``,
+CPU and are compared bit for bit in Jacobian limbs (the last through the
+scan the port's accumulate replaces).  Its ``scalar_mul``,
 ``sum`` and ``linear_map`` run the native CPU kernels there, which return
 other Jacobian representatives, so those are compared by affine value.
 """
@@ -70,6 +71,38 @@ def case_points(curves):
     return p1, p2, J.normalize(p2)
 
 
+def _accumulate_vs_jax_scan(T, J):
+    """The accumulate's output at every step against the JAX package's
+    scan body (``add_mixed_reset_lazy`` and the repair of flagged lanes,
+    msm.py:467-479) on the same entries: three lanes of four steps over
+    the table (A, B, A + B, C, infinity) that meet an x-collision with a
+    Jacobian and with an affine accumulator, a cancelling pair, infinity
+    on either side, key changes and one padding entry."""
+    A, B, C = _host_points(3, 13)
+    table = [A, B, hc.g1_add(A, B), C, None]
+    keys = [0, 0, 0, 0, 1, 1, 2, 2, 3, 3, 3]
+    pid = [0, 1, 2, 2, 0, 0, 4, 3, 3, 3, 4]
+    neg = [0, 0, 0, 1, 0, 0, 0, 0, 0, 1, 0]
+    lanes, steps, pad = 3, 4, 1
+    got, doubled = cuda_g1.accumulate(T.fq.spec, torch.tensor(keys), torch.tensor(pid),
+                                      torch.tensor(neg, dtype=torch.bool),
+                                      T.from_affine_ints(table), lanes, steps)
+    assert doubled == 2  # lane 0 at step 2, lane 1 at step 1
+
+    jt = J.from_affine_ints(table)
+    pts = jg1.PointJ(*(a[jnp.asarray(pid + [4] * pad)] for a in jt))  # padding: infinity
+    pts = J.select(jnp.asarray(neg + [0] * pad, bool), J.neg(pts), pts)
+    k = np.array(keys + [cuda_g1.SENTINEL] * pad, dtype=np.int64).reshape(lanes, steps).T
+    pts = jg1.PointJ(*(a.reshape(lanes, steps, -1).swapaxes(0, 1) for a in pts))
+    acc, prev = J.infinity((lanes,)), np.full(lanes, cuda_g1.SENTINEL)
+    for s in range(steps):
+        out, flag = J.add_mixed_reset_lazy(acc, jg1.PointJ(*(a[s] for a in pts)),
+                                           jnp.asarray(k[s] == prev))
+        acc = J.select(flag, J.double(acc), out)
+        prev = k[s]
+        _eq(PointJ(*(a[s] for a in got)), acc)
+
+
 @pytest.mark.parametrize("op", ["add", "add_mixed", "double", "add_mixed_reset_lazy"])
 def test_group_law_bit_exact(curves, case_points, op):
     T, J = curves
@@ -80,12 +113,9 @@ def test_group_law_bit_exact(curves, case_points, op):
         want, got = J.add_mixed(p1, a2), T.add_mixed(_port(p1), _port(a2))
     elif op == "double":
         want, got = J.double(p1), T.double(_port(p1))
-    else:
-        same = np.array([True, True, True, True, False, True, False, True, True])
-        want, flag = J.add_mixed_reset_lazy(p1, a2, jnp.asarray(same))
-        want = J.select(flag, J.double(p1), want)  # the JAX scan's repair (msm.py:473-478)
-        got, got_flag = T.add_mixed_reset_lazy(_port(p1), _port(a2), torch.from_numpy(same))
-        assert not got_flag.any()
+    else:  # the accumulate kernel replaces the JAX scan over add_mixed_reset_lazy
+        _accumulate_vs_jax_scan(T, J)
+        return
     _eq(got, want)
     if op == "add":  # the cases took their branches: 2 P, infinity, p1, p2
         aff = T.to_affine_ints(got)

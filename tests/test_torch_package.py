@@ -117,6 +117,13 @@ def test_cpu_g1_calls_launch_nothing():
     assert (_g1_launches(), cuda_g1.accumulate.repaired) == before
 
 
+def test_cios_depth_small_cases():
+    """The chain bound's depth of one CIOS product: one word is a * b, m,
+    m * p (3); a second word's row waits for the first row's reduction
+    before its own four steps (8)."""
+    assert [chip_smoke.cios_depth(n) for n in (1, 2)] == [3, 8]
+
+
 def test_chip_smoke_replays_main_path_calls():
     """chip_smoke.py's record-and-replay of the main path's kernel calls,
     run on the CPU at a small gate-identity shape."""
@@ -125,8 +132,9 @@ def test_chip_smoke_replays_main_path_calls():
     with chip_smoke.recording() as calls:
         run()
     assert (fr_module.cuda_fr, sumcheck_module.cuda_sumcheck) == (cuda_fr, cuda_sumcheck)
-    replayed = chip_smoke.replay(calls)
-    assert set(replayed) == set(chip_smoke.KERNELS)
+    replayed, errs = chip_smoke.replay(calls)
+    assert set(replayed) == set(errs) == set(chip_smoke.KERNELS)
+    assert not any(errs.values())
     assert replayed["sumcheck_product_phase"] == 2  # phase 1 and phase 2
     # a result that differs from the plain version is caught
     name, (spec, a, b), _ = next(c for c in calls if c[0] == "fr_mul")
