@@ -9,14 +9,15 @@ Phases (any failure raises and exits non-zero):
    ``scalable_collaborative_zksnark_tpu_torch/csrc`` (one ``nvcc`` each,
    in parallel);
 2. hold each kernel (Fr mul/add/sub, the Fq instances, the sumcheck
-   fold phase; the G1 point ops on 2^16 points and an edge set, the
-   scalar ladder on 1,024 full scalars and 0, 1, r - 1, the accumulate on
-   a forced x-collision) bit for bit against its plain PyTorch version on
-   the card, and time both (CUDA events, median of 10 or more for the
-   kernels); print each kernel's registers and spill bytes, and the
-   latency of one dependent multiply-add (a one-thread chain) that the
-   chain bounds of Horner, bucket-serial and the ladder are built on;
-3. the sumcheck main path: ``c_sumcheck_product`` in leader mode at the
+   fold phase; the G1 point ops, ``add_masked`` and ``add_reset`` on 2^16
+   points and an edge set, the scalar ladder on 1,024 full scalars and 0,
+   1, r - 1, the accumulate on a forced x-collision) bit for bit against
+   its plain PyTorch version on the card, and time both (CUDA events,
+   median of 10 or more for the kernels); print each kernel's registers
+   and spill bytes, and the latency of one dependent multiply-add (a
+   one-thread chain) that the chain bounds of Horner, bucket-serial and
+   the ladder are built on;
+3. the sumcheck path: ``c_sumcheck_product`` in leader mode at the
    gate-identity shape of the n = 16, l = 8 prove, ``[1, 6, 2^13, 16]``
    tables; launch counts are read around this one call; digest pinned;
    every kernel call of that run is recorded and replayed through the
@@ -24,35 +25,48 @@ Phases (any failure raises and exits non-zero):
 4. the MSM paths of the same prove (leader mode, one party), each with
    the launch counts set to 0 just before it and read just after, a
    JAX-made digest pin, and host time (synchronised, median of 3): the
-   random SRS bases (``srs_random``'s recipe), (a) the ``c_commit`` of
-   three polynomials (``d_msm`` over 8,192 bases), (b) the ``d_commit``
-   of three (``msm`` over 1,024), (c) a ``c_open`` q-vector chain
+   random SRS bases (``srs_random``'s), (a) the ``c_commit`` of three
+   polynomials (``d_msm`` over 8,192 bases), (b) the ``d_commit`` of
+   three (``msm`` over 1,024), (c) a ``c_open`` q-vector chain
    (``msm_ragged`` over levels 4,096 .. 1, batch 3).  Every G1- and
    field-kernel call of (a) and (c) is replayed through its plain
    version; Horner, bucket-serial and the accumulate are timed at the
-   shapes these calls gave them;
-5. the reference's sumcheck envelope, l = 32, with the seeds of
+   shapes these calls gave them.  (a)-(c) run once more with
+   ``SCZK_MSM_DENSE=0`` (the non-dense cores) against the same pins;
+5. the main path: ``dhyperplonk`` at n = 16, l = 8, leader mode, through
+   the bench entry (setup, warm-up, three synchronised proves, the split
+   by span), then one prove in each MSM configuration with the counts
+   set to 0 just before it and read just after; each prove's canonical
+   digest and comm against the JAX-made pins; the non-dense prove's first
+   and last ``add_masked`` step of every bucket loop replayed through the
+   plain version; one more dense prove under ``torch.profiler`` (device
+   time by kernel, the device's busy share); the (6, 1) prove in both
+   configurations, pinned;
+6. the reference's sumcheck envelope, l = 32, with the seeds of
    ``examples/sumcheck.py``: ``c_sumcheck_product`` at n = 26 (pinned),
    local ``sumcheck_product`` at n = 20 (pinned), ``c_sumcheck_product``
    at n = 30 (timed only);
-6. sim mode, l = 4 (32 parties), n = 20, shares from ``pack_from_public``:
+7. sim mode, l = 4 (32 parties), n = 20, shares from ``pack_from_public``:
    the opened transcript must pass ``check_sumcheck_product`` and equal the
    local transcript, and the party-net counters must equal the pins;
-7. print the kernel table (one JSON line) and last
+8. print the kernel table (one JSON line) and last
    ``{"ok": true, "device": {...}}``.
 
 The pins (sha256 of the little-endian uint32 limb bytes, of normalized
-points for the MSM paths, and the comm counters) were made from the JAX
-package on the CPU with the same seeds and the same digest code, by
-``test_chip_smoke_pins`` in ``tests/test_torch_sumcheck.py`` and
-``test_chip_smoke_msm_pins`` in ``tests/test_torch_msm.py`` (marked
-slow), which recompute and check them.
+points for the MSM paths, the proves' canonical 64-bit digests, and the
+comm counters) were made from the JAX package on the CPU with the same
+seeds and the same digest code, by ``test_chip_smoke_pins`` in
+``tests/test_torch_sumcheck.py``, ``test_chip_smoke_msm_pins`` in
+``tests/test_torch_msm.py`` and ``test_chip_smoke_prove_pins`` in
+``tests/test_torch_hyperplonk.py`` (marked slow), which recompute and
+check them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -60,31 +74,36 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
+from scalable_collaborative_zksnark_tpu_torch import bench as bench_module
 from scalable_collaborative_zksnark_tpu_torch import cuda_build
 from scalable_collaborative_zksnark_tpu_torch.curves import cuda_g1
 from scalable_collaborative_zksnark_tpu_torch.curves import g1 as g1_module
-from scalable_collaborative_zksnark_tpu_torch.curves.g1 import (
-    BLS12_381_G1_GEN,
-    PointJ,
-    bls12_381_g1,
-    map_points,
-)
+from scalable_collaborative_zksnark_tpu_torch.curves.g1 import PointJ, bls12_381_g1, map_points
 from scalable_collaborative_zksnark_tpu_torch.fields import cuda_fr
 from scalable_collaborative_zksnark_tpu_torch.fields import fr as fr_module
 from scalable_collaborative_zksnark_tpu_torch.fields.fr import get_field
 from scalable_collaborative_zksnark_tpu_torch.fields.config import int_to_limbs
+from scalable_collaborative_zksnark_tpu_torch.hyperplonk.collaborative import dhyperplonk
+from scalable_collaborative_zksnark_tpu_torch.hyperplonk.params import packed_proving_parameters
 from scalable_collaborative_zksnark_tpu_torch.mpc.net import PartyNet
 from scalable_collaborative_zksnark_tpu_torch.primitives import cuda_sumcheck
 from scalable_collaborative_zksnark_tpu_torch.primitives import msm as msm_module
 from scalable_collaborative_zksnark_tpu_torch.primitives import sumcheck as sumcheck_module
+from scalable_collaborative_zksnark_tpu_torch.primitives.poly_comm import rand_points_flat
 from scalable_collaborative_zksnark_tpu_torch.primitives.sumcheck import (
     c_sumcheck_product,
     check_sumcheck_product,
     sumcheck_product,
 )
 from scalable_collaborative_zksnark_tpu_torch.pss.pss import PackedSharingParams
-from scalable_collaborative_zksnark_tpu_torch.utils.digest import limb_digest, point_digest
+from scalable_collaborative_zksnark_tpu_torch.utils import timer
+from scalable_collaborative_zksnark_tpu_torch.utils.digest import (
+    limb_digest,
+    point_digest,
+    proof_digest,
+)
 
 FIELD = "bls12_381_fr"
 # Inputs of each pinned call: log2 size, packing factor, batch, seeds of
@@ -113,7 +132,16 @@ PINS = {
     "c_commit_comm": (9576, 9576, 152, 152, 2),
     "d_commit": "de71933757f550bce55bb74f3d58fa698eef57a817005681dbb8e1f9502b62cb",
     "c_open": "3941801c515593f3fe6063451492191ae82708e0b591e30ad6b8703f71baa9ae",
+    # the leader-mode prove: canonical digests (bench.py's CONFORMANCE_PIN)
+    # and, at (16, 8), (up[0], down[0], up[1], down[1], rounds) of one prove
+    "prove_n16_l8": 0x8D7A4D5DE7FF827B,
+    "prove_n6_l1": 0x0D8B55994DD236A9,
+    "prove_n16_l8_comm": (3303721, 3930193, 1078689, 1068745, 131),
 }
+# The main path: dhyperplonk in leader mode at the JAX package's flagship
+# size, and the small size its CPU tests pin.
+PROVE = {"n": 16, "l": 8}
+SMALL_PROVE = {"n": 6, "l": 1}
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 IMAD_PER_SM_CLOCK = 64  # 32-bit integer multiply(-add) per SM per clock, cc 9.0
@@ -139,12 +167,23 @@ G1_KERNELS = {
     "g1_scalar_mul": (_G1_SRC, f"{_PALLAS_G1}:207"),
     "g1_horner": (_G1_SRC, f"{_PALLAS_G1}:358"),
     "g1_bucket_serial": (_G1_SRC, f"{_PALLAS_G1}:497"),
+    "g1_add_masked": (_G1_SRC, f"{_PALLAS_G1}:144"),
+    "g1_add_reset": (_G1_SRC, f"{_PALLAS_G1}:161"),
 }
-G1_WRAPPERS = ("add", "add_mixed", "double", "accumulate", "scalar_mul", "horner", "bucket_serial")
+G1_WRAPPERS = ("add", "add_mixed", "double", "accumulate", "scalar_mul", "horner", "bucket_serial",
+               "add_masked", "add_reset")
 # kernels that the MSM paths must launch (add_mixed and double are off the
 # leader path: phase 2 alone holds them)
 MSM_PATH_KERNELS = ("g1_add", "g1_accumulate", "g1_scalar_mul", "g1_horner", "g1_bucket_serial",
                     "fr_mul")
+# kernels that one prove must launch, in each MSM configuration
+PROVE_KERNELS = ("fr_mul", "fr_add", "fr_sub", "sumcheck_product_phase", "g1_add",
+                 "g1_scalar_mul", "g1_horner")
+PROVE_DENSE_KERNELS = PROVE_KERNELS + ("g1_accumulate",)
+PROVE_NONDENSE_KERNELS = PROVE_KERNELS + ("g1_add_masked",)
+OFF_PATH = {"g1_add_mixed": "off the leader path; held by phase 2 alone",
+            "g1_double": "off the leader path; held by phase 2 alone",
+            "g1_add_reset": "no caller in either package; held by phase 2 alone"}
 FQ_MULS = 4 * 12 * 12 + 12  # 32-bit multiplies of one Fq CIOS product
 # products per op on the critical path of one thread (general or mixed
 # add: Z1Z1 -> U2 -> HH -> J -> Y3; double: B -> t -> ... -> Y3)
@@ -310,22 +349,6 @@ def time_phase(F, B: int, M: int, int_rate: float, plain: bool = True) -> dict:
     return row
 
 
-def rand_points_flat(curve, count: int, seed: int) -> PointJ:
-    """``srs_random``'s random bases (JAX package, poly_comm.py:497-517):
-    G times seeded 2-limb scalars on two small ladders, one outer add
-    A_i + B_j over all ``count`` lanes, then normalize."""
-    rng = np.random.RandomState(seed & 0x7FFFFFFF)
-    side = min(max(int(np.ceil(np.sqrt(count))), 1), 4096)
-    rows = (count + side - 1) // side
-    ka = rng.randint(1, 1 << 16, size=(side, 2)).astype(np.int32)
-    kb = rng.randint(1, 1 << 16, size=(rows, 2)).astype(np.int32)
-    g = curve.from_affine_ints([BLS12_381_G1_GEN])
-    A = curve.scalar_mul(g, torch.from_numpy(ka).to(curve.device))  # [side]
-    B = curve.scalar_mul(g, torch.from_numpy(kb).to(curve.device))  # [rows]
-    grid = curve.add(map_points(lambda a: a[None], A), map_points(lambda a: a[:, None], B))
-    return curve.normalize(map_points(lambda a: a.reshape(rows * side, -1)[:count], grid))
-
-
 def cios_depth(words: int) -> int:
     """Dependent multiply-adds on the longest path through one CIOS product
     on ``words`` words (``fmul`` of csrc/fr.cuh): each word step
@@ -452,7 +475,40 @@ def check_g1(curve, int_rate: float, lat_ms: float) -> dict:
                                                                      4, 3))
     if out[1] <= 0:
         raise AssertionError("forced x-collision: no lane repaired")
+    rows.update(check_masked(curve, int_rate, lat_ms))
     return rows, {"collision_repaired": out[1]}
+
+
+def masked_inputs(curve, m: int):
+    """(p1, affine p2, mask) over m random points (Z != 1) and the six edge
+    lanes of ``_edge_points``: a random 0/1 mask, 1 on the edge lanes (two
+    x-collisions that double, a cancel, three with infinity)."""
+    P = curve.double(rand_points_flat(curve, m, 64))
+    Q = curve.double(rand_points_flat(curve, m, 65))
+    p1, p2 = _edge_points(curve, P, Q)
+    mask = np.random.RandomState(66).randint(0, 2, size=p1.x.shape[0]).astype(bool)
+    mask[m:] = True
+    return p1, curve.normalize(p2), torch.from_numpy(mask).to(curve.device)
+
+
+def check_masked(curve, int_rate: float, lat_ms: float) -> dict:
+    """add_masked and add_reset on 2^16 random points plus the edge lanes
+    against their plain versions, and timed; the bound counts 11 products
+    per masked random lane (4 + 7 on a doubling lane, 4 on the cancel)."""
+    spec = curve.fq.spec
+    m = 1 << 16
+    p1, a2, mask = masked_inputs(curve, m)
+    M = p1.x.shape[0]
+    products = 11 * int(mask[:m].sum()) + 2 * (4 + 7) + 4
+    rows = {}
+    for op in ("add_masked", "add_reset"):
+        kern = getattr(cuda_g1, op)
+        err = _equal(f"g1 {op}", kern(spec, p1, a2, mask), kern.plain(spec, p1, a2, mask))
+        bound = _g1_bound(products, M * (3 * 288 + 1), ADD_DEPTH + DOUBLE_DEPTH, int_rate, lat_ms)
+        rows[f"g1_{op}"] = _g1_row(op, (M, spec.num_limbs), err,
+                                   _ms(lambda: kern(spec, p1, a2, mask)),
+                                   _ms(lambda: kern.plain(spec, p1, a2, mask), reps=3), bound)
+    return rows
 
 
 def time_recorded(calls, errs: dict, int_rate: float, lat_ms: float) -> dict:
@@ -700,12 +756,137 @@ def _counts() -> dict:
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
+@contextlib.contextmanager
+def msm_config(dense: bool):
+    """The MSM configuration of the block: the dense core, or with
+    ``SCZK_MSM_DENSE=0`` the non-dense cores (read at each MSM call)."""
+    before = os.environ.pop("SCZK_MSM_DENSE", None)
+    if not dense:
+        os.environ["SCZK_MSM_DENSE"] = "0"
+    try:
+        yield
+    finally:
+        os.environ.pop("SCZK_MSM_DENSE", None)
+        if before is not None:
+            os.environ["SCZK_MSM_DENSE"] = before
+
+
+@contextlib.contextmanager
+def sampling_masked():
+    """Keep the first and the last ``add_masked`` call of every bucket loop
+    in the block, as (kernel name, arguments, result): a loop's steps
+    chain, each taking the last step's result as its first operand, so a
+    call whose first operand is not the previous result starts a loop."""
+    kept, last = [], [None]
+
+    def call(spec, p1, p2, mask):
+        out = cuda_g1.add_masked(spec, p1, p2, mask)
+        entry = ("g1_add_masked", (spec, p1, p2, mask), out)
+        prev = last[0]
+        if prev is None or p1[0] is not prev[2][0]:
+            if prev is not None and kept[-1] is not prev:
+                kept.append(prev)
+            kept.append(entry)
+        last[0] = entry
+        return out
+
+    rec = _Recorder(cuda_g1, "g1_", (), [])
+    rec.add_masked = call
+    g1_module.cuda_g1 = rec
+    try:
+        yield kept
+    finally:
+        g1_module.cuda_g1 = cuda_g1
+        if last[0] is not None and kept[-1] is not last[0]:
+            kept.append(last[0])
+
+
+def prove_phase(launches: dict, replayed: dict) -> dict:
+    """The main path: ``dhyperplonk`` at n = 16, l = 8, leader mode, through
+    the bench entry (setup, warm-up, three synchronised proves, one with
+    synchronised spans), its digest and comm against the pins, then one
+    prove counted on its own in each MSM configuration.  The non-dense
+    prove's first and last ``add_masked`` step of every loop is replayed
+    through the plain version."""
+    n, l = PROVE["n"], PROVE["l"]
+    report = bench_module.run(n, l, "cuda", repeat=3)
+    pk, net = report.pop("pk"), report.pop("net")
+    del report["bundle"]
+    _check_pin(f"prove_n{n}_l{l}", int(report["digest"], 16))
+    for dense in (True, False):
+        key = "prove" if dense else "prove_nondense"
+        with msm_config(dense), (contextlib.nullcontext([]) if dense else sampling_masked()) as kept:
+            net.reset_comm()
+            _reset_counts()
+            t0 = time.perf_counter()
+            out = dhyperplonk(n, pk, net)
+            torch.cuda.synchronize()
+            report[f"{key}_s"] = time.perf_counter() - t0
+            launches[key] = _counts()
+        _check_pin(f"prove_n{n}_l{l}_comm", _comm(net))
+        _check_pin(f"prove_n{n}_l{l}", proof_digest(pk.curve, out))
+        report[f"{key}_launches"] = {k: v for k, v in launches[key].items() if v}
+        del out
+    replayed["prove_nondense"], errs = replay(kept)
+    report["add_masked_steps_replayed"] = len(kept)
+    report["add_masked_replay_max_abs_err"] = errs["g1_add_masked"]
+    report["comm_pinned"] = list(PINS[f"prove_n{n}_l{l}_comm"])
+    del kept
+    report["profile"] = profile_prove(pk, net, n, report["value"])
+    del pk
+    return report
+
+
+def profile_prove(pk, net, n: int, prove_s: float) -> dict:
+    """One dense prove under ``torch.profiler`` (host and CUDA activity):
+    the device time summed over every kernel and copy, its share of the
+    profiled wall time and of ``prove_s`` (the unprofiled median), and the
+    kernels that took most of it.  The ``timed`` spans' ranges, which the
+    profiler also reports with device time, are left out.  Without device
+    events the shares are None: not measured."""
+    torch.cuda.synchronize()
+    timer.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dhyperplonk(n, pk, net)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = {label.replace(" ", "_") for label, _ in timer.records()}
+    events = [e for e in prof.key_averages() if e.key not in spans]
+    name = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
+            else "self_cuda_time_total")  # the name before torch 2.4
+    dev = lambda e: getattr(e, name)  # noqa: E731
+    kern = sorted(((e.key, dev(e) / 1e6, e.count) for e in events if dev(e) > 0),
+                  key=lambda t: -t[1])
+    busy = sum(t for _, t, _ in kern)
+    return {"profiled_wall_s": wall, "device_busy_s": busy,
+            "busy_share_of_profiled": busy / wall if kern else None,
+            "busy_share_of_prove": busy / prove_s if kern else None,
+            "top_device_s": [[k, t, c] for k, t, c in kern[:12]]}
+
+
+def small_prove() -> dict:
+    """The (6, 1) leader-mode prove in both MSM configurations, pinned."""
+    n, l = SMALL_PROVE["n"], SMALL_PROVE["l"]
+    net = PartyNet(8 * l, mode="leader")
+    pk = packed_proving_parameters(n, l, net)
+    digests = {}
+    for dense in (True, False):
+        with msm_config(dense):
+            digests["dense" if dense else "nondense"] = d = proof_digest(
+                pk.curve, dhyperplonk(n, pk, net))
+        _check_pin(f"prove_n{n}_l{l}", d)
+    return {k: f"0x{v:016x}" for k, v in digests.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
     card = _smi("name,power.limit")
     print(card, flush=True)
+    print(json.dumps({"python": sys.version.split()[0], "torch": torch.__version__,
+                      "cuda": torch.version.cuda}), flush=True)
 
     # 1. build
     t0 = time.perf_counter()
@@ -783,13 +964,27 @@ def main() -> int:
         del calls, out
         paths[f"{name}_ms"] = _host_ms(run, 3)
         paths[f"{name}_launches"] = {k: v for k, v in launches[name].items() if v}
+        with msm_config(dense=False):  # the non-dense cores, the same pin
+            _reset_counts()
+            out = run()
+            torch.cuda.synchronize()
+            launches[f"{name}_nondense"] = _counts()
+            paths[f"{name}_nondense_ms"] = _host_ms(run, 1)
+        _check_pin(name, point_digest(curve, out))
+        del out
     print(json.dumps({"msm_replayed": {k: replayed[k] for k in ("c_commit", "c_open")},
                       "msm_timed_at_path_shapes": g1_times}), flush=True)
     del bases, runs, run_a
     g1_rows.update(g1_times["c_commit"])
     g1_rows["g1_bucket_serial"] = g1_times["c_open"]["g1_bucket_serial"]
 
-    # 5. the reference's sumcheck envelope
+    # 5. the main path: the prove at n = 16, l = 8 in both MSM
+    # configurations, and the (6, 1) prove
+    prove = prove_phase(launches, replayed)
+    prove["n6_l1_digests"] = small_prove()
+    print(json.dumps({"prove": prove}), flush=True)
+
+    # 6. the reference's sumcheck envelope
     run = envelope(F)
     _reset_counts()
     _check_pin("envelope", limb_digest(run()))
@@ -803,7 +998,7 @@ def main() -> int:
     paths["c_sumcheck_product_n30_l32_ms"] = _host_ms(top, 2)
     del top
 
-    # 6. sim mode, self-verifying
+    # 7. sim mode, self-verifying
     net, opened, mono, ch_ints, h = sim_mode(F)
     proof_ints = [tuple(int(v) for v in row) for row in F.array_to_ints(opened)]
     if not check_sumcheck_product(F, h, proof_ints, ch_ints):
@@ -814,12 +1009,16 @@ def main() -> int:
     paths["sim_comm"] = list(_comm(net))
     print(json.dumps({"paths": paths}), flush=True)
 
-    # 7. kernel table: launches summed over the main paths (gate identity,
-    # SRS bases, c_commit, d_commit, c_open), each counted on its own
+    # 8. kernel table: launches summed over the paths (gate identity, SRS
+    # bases, c_commit, d_commit, c_open, each also non-dense, and the
+    # prove in both configurations), each counted on its own
     zero = [k for k in KERNELS
             if not launches["gate_identity"][k] or not replayed["gate_identity"].get(k)]
     msm_paths = ("srs_bases", "c_commit", "d_commit", "c_open")
     zero += [k for k in MSM_PATH_KERNELS if not sum(launches[p][k] for p in msm_paths)]
+    zero += [f"{k} (prove)" for k in PROVE_DENSE_KERNELS if not launches["prove"][k]]
+    zero += [f"{k} (non-dense prove)" for k in PROVE_NONDENSE_KERNELS
+             if not launches["prove_nondense"][k]]
     if zero:
         raise AssertionError(f"kernels not launched on the main paths: {zero}")
     rows = {f"fr_{r['op']}": dict(r, **cuda_fr.attributes(F.spec, r["op"])) for r in fr_rows}
@@ -841,8 +1040,8 @@ def main() -> int:
         }
         if "bound_kind" in r:
             row["bound_kind"] = r["bound_kind"]
-        if name in ("g1_add_mixed", "g1_double"):
-            row["note"] = "off the leader MSM path; held by phase 2 alone"
+        if name in OFF_PATH:
+            row["note"] = OFF_PATH[name]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,11 +6,15 @@ tests) hand its arrays and host matrices across as numpy with these.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from .curves.g1 import PointJ
+from .curves.g1 import PointJ, bls12_381_g1
 from .device import DEFAULT, resolve
+from .hyperplonk.params import PackedProvingParameters
+from .primitives.poly_comm import PolynomialCommitment
 from .pss.pss import PackedSharingParams
 
 
@@ -40,6 +44,43 @@ def points_from_numpy(pt, device=DEFAULT) -> PointJ:
 def points_to_numpy(pt) -> tuple:
     """``PointJ`` -> (x, y, z) ``uint32`` ndarrays with the same bits."""
     return tuple(to_numpy(a) for a in pt)
+
+
+def _point_levels(levels, device):
+    """A list (or a dict of lists) of point batches -> the same of ``PointJ``."""
+    if levels is None:
+        return None
+    if isinstance(levels, dict):
+        return {k: _point_levels(v, device) for k, v in levels.items()}
+    return [points_from_numpy(pt, device) for pt in levels]
+
+
+def srs_from_numpy(curve, srs):
+    """An SRS with the fields of the JAX package's ``PolynomialCommitment``
+    (point levels as three ``uint32`` arrays each, or anything
+    ``np.asarray`` takes; host G2 points and party weights as they are)
+    -> the port's ``PolynomialCommitment`` on ``curve``'s device."""
+    dev = curve.device
+    return PolynomialCommitment(
+        curve=curve, powers_of_g=_point_levels(srs.powers_of_g, dev),
+        powers_of_g2=list(srs.powers_of_g2), party_weights=srs.party_weights,
+        root_levels=_point_levels(srs.root_levels, dev),
+        packed_powers=_point_levels(srs.packed_powers, dev), affine=bool(srs.affine))
+
+
+def proving_parameters_from_numpy(pk, device=DEFAULT):
+    """The JAX package's ``PackedProvingParameters`` (each limb field a
+    ``uint32`` array, or anything ``np.asarray`` takes) -> the port's, on
+    ``device``: the same inputs for both provers, so a mismatch names its
+    step.  The curve is BLS12-381's G1."""
+    curve = bls12_381_g1(device)
+    fields = {"n": int(pk.n), "pp": PackedSharingParams(curve.fr, int(pk.pp.l)), "curve": curve,
+              "c_commitment": srs_from_numpy(curve, pk.c_commitment),
+              "d_commitment": srs_from_numpy(curve, pk.d_commitment)}
+    for f in dataclasses.fields(PackedProvingParameters):
+        if f.name not in fields:
+            fields[f.name] = from_numpy(np.asarray(getattr(pk, f.name)), device)
+    return PackedProvingParameters(**fields)
 
 
 def pss_matrices(pp: PackedSharingParams) -> dict[str, np.ndarray]:

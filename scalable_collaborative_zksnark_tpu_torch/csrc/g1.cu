@@ -3,6 +3,9 @@
 // Replaces curves/pallas_g1.py:
 //   point_op_kernel      _add_kernel (add, add_mixed) and _double_kernel
 //                        (_point_call): one thread per point;
+//   masked_op_kernel     _add_masked_kernel and _add_reset_kernel (the same
+//                        _point_call site): a mixed add under a per-lane
+//                        mask, one thread per point;
 //   accumulate_kernel    _add_reset_lazy_kernel with the lax.scan over
 //                        steps around it and the repair of flagged lanes
 //                        (primitives/msm.py _dense_bucket_sums);
@@ -81,6 +84,28 @@ __global__ void __launch_bounds__(kThreads)
     g1_add<OP == 1>(r, p, q, c);
   }
   store_point(out, i, r);
+}
+
+// OP: 0 add_masked (out = mask ? a + b : a, the bucket accumulate step of
+// the non-dense MSM cores), 1 add_reset (out = mask ? a + b : b); b is
+// affine or infinity (mixed add).  A lane whose mask is 0 does no
+// arithmetic: it copies its operand, as the TPU's select would return it.
+template <int OP>
+__global__ void __launch_bounds__(kThreads)
+    masked_op_kernel(Coords a, Coords b, const uint8_t* __restrict__ mask, OutCoords out,
+                     unsigned m, G1Const c) {
+  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  Pt p;
+  if (mask[i]) {
+    Pt q;
+    load_point(a, i, p);
+    load_point(b, i, q);
+    g1_add<true>(p, p, q, c);
+  } else {
+    load_point(OP == 0 ? a : b, i, p);
+  }
+  store_point(out, i, p);
 }
 
 // Lane t walks entries [t steps, (t + 1) steps) of the key-sorted list:
@@ -236,6 +261,26 @@ extern "C" int sczk_g1_point_op(int op, const void* ax, const void* ay, const vo
   return (int)cudaGetLastError();
 }
 
+// op: 0 add_masked, 1 add_reset; mask: uint8 [m] (0 or 1); b affine or
+// infinity.  m points.
+extern "C" int sczk_g1_masked_op(int op, const void* ax, const void* ay, const void* az,
+                                 const void* bx, const void* by, const void* bz,
+                                 const void* mask, void* ox, void* oy, void* oz, int m,
+                                 const void* consts, void* stream) {
+  if (m <= 0 || op < 0 || op > 1) return (int)cudaErrorInvalidValue;
+  const Coords a = coords(ax, ay, az), b = coords(bx, by, bz);
+  const OutCoords o = out_coords(ox, oy, oz);
+  const auto* mk = static_cast<const uint8_t*>(mask);
+  const G1Const c = consts_of(consts);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (op == 0) {
+    masked_op_kernel<0><<<blocks(m), kThreads, 0, s>>>(a, b, mk, o, (unsigned)m, c);
+  } else {
+    masked_op_kernel<1><<<blocks(m), kThreads, 0, s>>>(a, b, mk, o, (unsigned)m, c);
+  }
+  return (int)cudaGetLastError();
+}
+
 // keys, pid: int64 [E]; neg: uint8 [E]; bases: the point table pid
 // indexes; scanned: [steps, T]; repaired: one int32, incremented.
 extern "C" int sczk_g1_accumulate(const void* keys, const void* pid, const void* neg, long long E,
@@ -299,7 +344,7 @@ extern "C" int sczk_imad_chain(const void* a, int n, void* out, void* stream) {
 
 // Registers and local (spill) bytes per thread of kernel `which`:
 // 0 add, 1 add_mixed, 2 double, 3 accumulate, 4 scalar_mul, 5 horner,
-// 6 bucket_serial.  out: int32 [2].
+// 6 bucket_serial, 7 add_masked, 8 add_reset.  out: int32 [2].
 extern "C" int sczk_g1_attrs(int which, int* out) {
   const void* fns[] = {
       reinterpret_cast<const void*>(&point_op_kernel<0>),
@@ -309,6 +354,8 @@ extern "C" int sczk_g1_attrs(int which, int* out) {
       reinterpret_cast<const void*>(&scalar_mul_kernel),
       reinterpret_cast<const void*>(&horner_kernel),
       reinterpret_cast<const void*>(&bucket_serial_kernel),
+      reinterpret_cast<const void*>(&masked_op_kernel<0>),
+      reinterpret_cast<const void*>(&masked_op_kernel<1>),
   };
   if (which < 0 || which >= (int)(sizeof(fns) / sizeof(fns[0]))) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;

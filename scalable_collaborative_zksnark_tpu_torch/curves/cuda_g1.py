@@ -1,7 +1,9 @@
 """G1 point kernels: CUDA wrappers and their plain PyTorch versions.
 
 Replaces ``curves/pallas_g1.py``: ``_add_kernel`` (``add``, ``add_mixed``)
-and ``_double_kernel`` behind ``point_op``; ``_add_reset_lazy_kernel``
+and ``_double_kernel`` behind ``point_op``; ``_add_masked_kernel``
+(``add_masked``) and ``_add_reset_kernel`` (``add_reset``);
+``_add_reset_lazy_kernel``
 with the scan and repair around it in ``primitives/msm.py``
 (``accumulate``); ``_scalar_mul_kernel`` (``scalar_mul``);
 ``_horner_kernel`` (``horner``); ``_bucket_serial_kernel``
@@ -37,10 +39,12 @@ from ..fields.config import FieldSpec
 
 SENTINEL = 0xFFFFFFFF  # key of the accumulate's padding entries (msm.py)
 _OPS = {"add": 0, "add_mixed": 1, "double": 2}
+_MASKED_OPS = {"add_masked": 0, "add_reset": 1}
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "sczk_g1_point_op": [_I] + [_VP] * 9 + [_I, _VP, _VP],
+    "sczk_g1_masked_op": [_I] + [_VP] * 10 + [_I, _VP, _VP],
     "sczk_g1_accumulate": [_VP, _VP, _VP, _LL, _VP, _VP, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP],
     "sczk_g1_scalar_mul": [_VP, _VP, _VP, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP],
     "sczk_g1_horner": [_VP, _VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP],
@@ -50,7 +54,7 @@ _SIGNATURES = {
     "sczk_imad_chain": [_VP, _I, _VP, _VP],
 }
 ATTR_KERNELS = ("add", "add_mixed", "double", "accumulate", "scalar_mul", "horner",
-                "bucket_serial")
+                "bucket_serial", "add_masked", "add_reset")
 
 
 # ---------------------------------------------------------------------------
@@ -142,6 +146,23 @@ def add_plain(spec: FieldSpec, p1: tuple, p2: tuple, mixed: bool = False):
     return select(inf1, p2, out), is_dbl
 
 
+def masked_plain(spec: FieldSpec, p1: tuple, p2: tuple, mask: torch.Tensor,
+                 keep_first: bool) -> tuple:
+    """mask ? p1 + p2 (mixed) : (p1 if ``keep_first`` else p2), the add
+    computed on the masked lanes only (``Curve.add_mixed_masked`` /
+    ``add_mixed_reset``)."""
+    p1, p2, mask = _broadcast_masked(p1, p2, mask)
+    out = tuple(a.clone(memory_format=torch.contiguous_format)
+                for a in (p1 if keep_first else p2))
+    idx = mask.nonzero(as_tuple=True)
+    if idx[0].numel():
+        summed = add_plain(spec, tuple(a[idx] for a in p1), tuple(a[idx] for a in p2),
+                           mixed=True)[0]
+        for o, s in zip(out, summed):
+            o[idx] = s
+    return out
+
+
 def neg_y_plain(spec: FieldSpec, y: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
     """y -> p - y where ``neg`` (``Field.neg``: 0 - y)."""
     return torch.where(neg[..., None], cuda_fr.sub_plain(spec, torch.zeros_like(y), y), y)
@@ -182,15 +203,20 @@ def accumulate_plain(spec: FieldSpec, keys: torch.Tensor, pid: torch.Tensor, neg
 def scalar_mul_plain(spec: FieldSpec, pt: tuple, scalars: torch.Tensor) -> tuple:
     """MSB-first double-and-add over standard-form 16-bit scalar limbs
     (``Curve.scalar_mul``); ``pt`` and ``scalars`` share their batch shape."""
-    acc = infinity(spec, pt[0].shape[:-1], pt[0].device)
+    shape = pt[0].shape[:-1]
+    pt = tuple(a.reshape(-1, a.shape[-1]) for a in pt)
+    w_all = scalars.reshape(-1, scalars.shape[-1])
+    acc = infinity(spec, (pt[0].shape[0],), pt[0].device)
     for limb in range(scalars.shape[-1] - 1, -1, -1):
-        w = scalars[..., limb]
+        w = w_all[:, limb]
         for b in range(15, -1, -1):
             acc = double_plain(spec, acc)
-            bit = ((w >> b) & 1) > 0
-            if bool(bit.any()):
-                acc = select(bit, add_plain(spec, acc, pt)[0], acc)
-    return acc
+            idx = (((w >> b) & 1) > 0).nonzero(as_tuple=True)  # lanes that add, as the kernel
+            if idx[0].numel():
+                summed = add_plain(spec, tuple(a[idx] for a in acc), tuple(a[idx] for a in pt))[0]
+                for a, s in zip(acc, summed):
+                    a[idx] = s
+    return tuple(a.reshape(shape + a.shape[-1:]) for a in acc)
 
 
 def horner_plain(spec: FieldSpec, totals: tuple, c: int) -> tuple:
@@ -285,6 +311,51 @@ def _broadcast(*pts: tuple) -> list:
     """Points broadcast to one batch shape (materialised, for the plain ops)."""
     shape = torch.broadcast_shapes(*(a.shape for pt in pts for a in pt))
     return [tuple(a.expand(shape) for a in pt) for pt in pts]
+
+
+def _broadcast_masked(p1: tuple, p2: tuple, mask: torch.Tensor):
+    """Two point operands and a per-point mask broadcast to one batch shape."""
+    shape = torch.broadcast_shapes(*(a.shape for a in p1 + p2), mask.shape + p1[0].shape[-1:])
+    return (tuple(a.expand(shape) for a in p1), tuple(a.expand(shape) for a in p2),
+            mask.expand(shape[:-1]))
+
+
+def _masked_op(wrapper, spec: FieldSpec, p1: tuple, p2: tuple, mask: torch.Tensor) -> tuple:
+    if _on_cpu(*p1, *p2, mask):
+        return wrapper.plain(spec, p1, p2, mask)
+    _check(spec, *p1, *p2)
+    if mask.dtype != torch.bool or mask.device != p1[0].device:
+        raise TypeError(f"the mask must be a bool tensor on {p1[0].device}, got "
+                        f"{mask.device} {mask.dtype}")
+    p1, p2, mask = _broadcast_masked(p1, p2, mask)
+    shape = p1[0].shape
+    if shape[-1] != spec.num_limbs:
+        raise ValueError(f"limb axis {shape[-1]} != {spec.num_limbs}")
+    m = shape.numel() // shape[-1]
+    out = _empty(spec, shape[:-1], mask.device)
+    if m == 0:
+        return out
+    a = [_operand(x, shape) for x in p1]
+    b = [_operand(x, shape) for x in p2]
+    mk = mask.contiguous()
+    err = _lib().sczk_g1_masked_op(_MASKED_OPS[wrapper.__name__], *_ptrs(a), *_ptrs(b),
+                                   mk.data_ptr(), *_ptrs(out), m, g1_consts(spec).ctypes.data,
+                                   _stream(mk))
+    wrapper.launches += 1
+    cuda_build.check(err, f"g1 {wrapper.__name__}")
+    return out
+
+
+def add_masked(spec: FieldSpec, p1: tuple, p2: tuple, valid: torch.Tensor) -> tuple:
+    """valid ? p1 + p2 : p1 per point, p2 affine or infinity (the non-dense
+    MSM's bucket step): kernel on CUDA, plain on the CPU."""
+    return _masked_op(add_masked, spec, p1, p2, valid)
+
+
+def add_reset(spec: FieldSpec, p1: tuple, p2: tuple, same: torch.Tensor) -> tuple:
+    """same ? p1 + p2 : p2 per point, p2 affine or infinity: kernel on
+    CUDA, plain on the CPU."""
+    return _masked_op(add_reset, spec, p1, p2, same)
 
 
 def add(spec: FieldSpec, p1: tuple, p2: tuple) -> tuple:
@@ -443,6 +514,10 @@ add.plain = lambda spec, p1, p2: add_plain(spec, *_broadcast(p1, p2))[0]  # noqa
 add_mixed.plain = lambda spec, p1, p2: add_plain(  # noqa: E731
     spec, *_broadcast(p1, p2), mixed=True)[0]
 double.plain = double_plain
+add_masked.plain = lambda spec, p1, p2, valid: masked_plain(  # noqa: E731
+    spec, p1, p2, valid, keep_first=True)
+add_reset.plain = lambda spec, p1, p2, same: masked_plain(  # noqa: E731
+    spec, p1, p2, same, keep_first=False)
 accumulate.plain = accumulate_plain
 scalar_mul.plain = lambda spec, pt, scalars: scalar_mul_plain(  # noqa: E731
     spec, *_broadcast_scalars(pt, scalars))
@@ -450,5 +525,6 @@ horner.plain = horner_plain
 bucket_serial.plain = bucket_serial_plain
 
 add.launches = add_mixed.launches = double.launches = 0
+add_masked.launches = add_reset.launches = 0
 accumulate.launches = accumulate.repaired = 0
 scalar_mul.launches = horner.launches = bucket_serial.launches = 0

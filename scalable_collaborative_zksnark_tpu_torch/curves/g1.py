@@ -3,8 +3,9 @@
 Mirrors the JAX package's ``curves/g1.py``.  A point batch is a
 ``PointJ(x, y, z)`` of Fq tensors ``int32 [..., 24]`` in Montgomery form
 (x = X/Z^2, y = Y/Z^3; Z = 0 is infinity, written (0, 1, 0)) -- the same
-bits as the JAX package's ``PointJ``.  ``add``, ``add_mixed``, ``double``
-and ``scalar_mul`` go through ``cuda_g1`` (a CUDA kernel for tensors on the
+bits as the JAX package's ``PointJ``.  ``add``, ``add_mixed``,
+``add_mixed_masked``, ``add_mixed_reset``, ``double`` and ``scalar_mul``
+go through ``cuda_g1`` (a CUDA kernel for tensors on the
 card, the plain version on the CPU); everything else is plain tensor code
 on those and on the ``Field`` ops.
 
@@ -103,6 +104,14 @@ class Curve:
     def add_mixed(self, p1: PointJ, p2: PointJ) -> PointJ:
         """p1 (Jacobian) + p2 with z2 in {0, 1} (affine or infinity)."""
         return PointJ(*cuda_g1.add_mixed(self.fq.spec, p1, p2))
+
+    def add_mixed_masked(self, p1: PointJ, p2: PointJ, valid: torch.Tensor) -> PointJ:
+        """valid ? p1 + p2 (mixed) : p1 -- the non-dense MSM's bucket step."""
+        return PointJ(*cuda_g1.add_masked(self.fq.spec, p1, p2, valid))
+
+    def add_mixed_reset(self, p1: PointJ, p2: PointJ, same: torch.Tensor) -> PointJ:
+        """same ? p1 + p2 (mixed) : p2 -- a segment step that restarts at p2."""
+        return PointJ(*cuda_g1.add_reset(self.fq.spec, p1, p2, same))
 
     def normalize(self, pt: PointJ) -> PointJ:
         """Jacobian -> affine-or-infinity (z in {0, 1}), batched: one batch

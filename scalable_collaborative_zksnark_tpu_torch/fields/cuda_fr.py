@@ -93,18 +93,20 @@ def sub_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
 def mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Montgomery a*b*R^-1 mod p on 16-bit limbs with int64 columns.
 
-    The product's 2L-1 columns (each < L * 2^32) are formed at once; then
-    REDC step i adds m*p (each product < 2^32) at column offset i and
-    carries column i up, so no column passes 2L * 2^32 + carries < 2^39
-    (and t_i * n0 < 2^55); the result occupies columns L..2L and is below
-    2p.  The limb axis is kept first so that each step's rows are views."""
+    The product's 2L-1 columns (each < L * 2^32) are summed row by row of
+    a (one multiply-add of all of b's limbs per row); then REDC step i
+    adds m*p (each product < 2^32) at column offset i and carries column i
+    up, so no column passes 2L * 2^32 + carries < 2^39 (and t_i * n0 <
+    2^55); the result occupies columns L..2L and is below 2p.  The limb
+    axis is kept first so that each step's rows are views."""
     a, b = _to64(a, b)
     L = spec.num_limbs
     batch = a.shape[:-1]
     p = limbs_const(spec.modulus, L, a.device).reshape((L,) + (1,) * len(batch))
-    prod = torch.nn.functional.pad(a[..., :, None] * b[..., None, :], (0, L))  # [..., L, 2L]
-    diag = prod.reshape(batch + (2 * L * L,))[..., : 2 * L * L - L].reshape(batch + (L, 2 * L - 1))
-    t = torch.nn.functional.pad(diag.sum(-2), (0, 2)).movedim(-1, 0).contiguous()  # [2L+1, ...]
+    a_rows, b_rows = a.movedim(-1, 0), b.movedim(-1, 0).contiguous()  # [L, ...]
+    t = torch.zeros((2 * L + 1,) + batch, dtype=torch.int64, device=a.device)
+    for i in range(L):
+        t[i : i + L].addcmul_(b_rows, a_rows[i])
     for i in range(L):
         m = (t[i] * spec.n0inv) & LIMB_MASK
         t[i : i + L].addcmul_(p, m)

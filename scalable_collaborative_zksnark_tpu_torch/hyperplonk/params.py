@@ -1,0 +1,193 @@
+"""Prover inputs: PackedProvingParameters and their seeded generators.
+
+Mirrors the JAX package's ``hyperplonk/params.py`` (parity:
+dhyperplonk.rs:21-157).  As in the reference, every input is a seeded
+random placeholder of the right size ("Jump from sky", dhyperplonk.rs:
+187-190): arithmetic and communication are cost-faithful, the witness is
+not a real circuit.  Fields with a ``_p`` suffix are plain values sliced
+1/N per party; the rest are PSS shares sized 1/l per party.  Every
+per-party vector is a tensor [P, len, L] (P = N in ``sim`` mode, 1 in
+``leader`` mode); challenges are [k, L] or [L].  The inputs are drawn
+with the JAX package's ``RandomState`` seeds, so both packages make the
+same bits.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..curves.g1 import Curve, bls12_381_g1
+from ..device import DEFAULT
+from ..mpc.net import PartyNet
+from ..primitives.mle import fix_variable, pack_vec
+from ..primitives.poly_comm import PolynomialCommitment, srs_random
+from ..pss.pss import PackedSharingParams
+
+
+@dataclasses.dataclass
+class PackedProvingParameters:
+    """All collaborative-prover inputs (dhyperplonk.rs:21-62)."""
+
+    n: int
+    pp: PackedSharingParams
+    curve: Curve
+    # witness shares (gate_count * 4 / l per party)
+    V: torch.Tensor
+    a_evals: torch.Tensor
+    b_evals: torch.Tensor
+    c_evals: torch.Tensor
+    # input / selectors: shares and plain slices
+    I: torch.Tensor  # noqa: E741
+    S1: torch.Tensor
+    S2: torch.Tensor
+    I_p: torch.Tensor
+    S1_p: torch.Tensor
+    S2_p: torch.Tensor
+    # permutation / identity polynomials
+    ssigma: torch.Tensor
+    ssigma_p: torch.Tensor
+    ssigma_a: torch.Tensor
+    ssigma_b: torch.Tensor
+    ssigma_c: torch.Tensor
+    sid: torch.Tensor
+    sid_p: torch.Tensor
+    # eq polynomials
+    eq: torch.Tensor
+    eq_top_p: torch.Tensor
+    eq_r1: torch.Tensor
+    eq_r1_p: torch.Tensor
+    eq_r2: torch.Tensor
+    eq_r2_p: torch.Tensor
+    # challenges
+    challenge: torch.Tensor
+    challenge_r1: torch.Tensor
+    challenge_r2: torch.Tensor
+    alpha: torch.Tensor
+    beta: torch.Tensor
+    gamma: torch.Tensor
+    # commitments (SRS)
+    d_commitment: PolynomialCommitment
+    c_commitment: PolynomialCommitment
+    # masks for c_acc_product_and_share
+    mask: torch.Tensor
+    unmask0: torch.Tensor
+    unmask1: torch.Tensor
+    unmask2: torch.Tensor
+    # dummies
+    reduce_target: torch.Tensor
+
+
+def _corner_points(F):
+    """The (x0, x1) points (0, 0), (0, 1), (1, 0) that pick a, b and c out of V."""
+    zero, one = F.const(0), F.const(1)
+    return torch.stack([zero, zero]), torch.stack([zero, one]), torch.stack([one, zero])
+
+
+def consistent_proving_parameters(n: int, l: int, net: PartyNet, srs: dict,
+                                  curve: Optional[Curve] = None, seed: int = 1,
+                                  device=DEFAULT):
+    """Inputs that are consistent shares and slices of one global witness,
+    so distributed transcripts can be opened and checked against the
+    monolithic oracle.  Needs ``sim`` mode and an honest ``srs`` =
+    {"c": packed secret-derived SRS, "d": secret-derived SRS with the
+    distributed extension}.  Returns (pk, global polynomials by name)."""
+    if net.mode != "sim":
+        raise ValueError("consistent proving parameters need sim mode")
+    curve = bls12_381_g1(device) if curve is None else curve
+    F = curve.fr
+    pp = PackedSharingParams(F, l)
+    N = pp.n
+    gc = 1 << n
+    rg = lambda sz, k: F.random((sz,), seed * 7013 + k)  # noqa: E731
+    g = {"V": rg(gc * 4, 1), "I": rg(gc, 3), "S1": rg(gc, 4), "S2": rg(gc, 5),
+         "ssigma": rg(gc * 4, 9), "sid": rg(gc * 4, 10), "eq": rg(gc, 12),
+         "eq_r1": rg(gc * 4, 14), "eq_r2": rg(gc * 4, 16)}
+    pts00, pts01, pts10 = _corner_points(F)
+    g["a"] = fix_variable(F, g["V"], pts00)
+    g["b"] = fix_variable(F, g["V"], pts01)
+    g["c"] = fix_variable(F, g["V"], pts10)
+    sh = lambda x: pack_vec(pp, x)  # noqa: E731
+    sl = lambda x: x.reshape(N, x.shape[-2] // N, F.L)  # noqa: E731
+    P = net.local_parties
+    rnd = lambda shape, k: F.random(shape, seed * 1009 + k)  # noqa: E731
+    pk = PackedProvingParameters(
+        n=n, pp=pp, curve=curve,
+        V=sh(g["V"]), a_evals=sh(g["a"]), b_evals=sh(g["b"]), c_evals=sh(g["c"]),
+        I=sh(g["I"]), S1=sh(g["S1"]), S2=sh(g["S2"]),
+        I_p=sl(g["I"]), S1_p=sl(g["S1"]), S2_p=sl(g["S2"]),
+        ssigma=sh(g["ssigma"]), ssigma_p=sl(g["ssigma"]),
+        ssigma_a=sh(fix_variable(F, g["ssigma"], pts00)),
+        ssigma_b=sh(fix_variable(F, g["ssigma"], pts01)),
+        ssigma_c=sh(fix_variable(F, g["ssigma"], pts10)),
+        sid=sh(g["sid"]), sid_p=sl(g["sid"]),
+        eq=sh(g["eq"]), eq_top_p=rnd((P, N * 2), 13),
+        eq_r1=sh(g["eq_r1"]), eq_r1_p=sl(g["eq_r1"]),
+        eq_r2=sh(g["eq_r2"]), eq_r2_p=sl(g["eq_r2"]),
+        challenge=rnd((n,), 18), challenge_r1=rnd((n + 2,), 19), challenge_r2=rnd((n + 2,), 20),
+        alpha=rnd((), 21), beta=rnd((), 22), gamma=rnd((), 23),
+        d_commitment=srs["d"], c_commitment=srs["c"],
+        mask=rnd((P, gc * 4 // l), 24), unmask0=rnd((P, gc * 4 // l), 25),
+        unmask1=rnd((P, gc * 4 // l), 26), unmask2=rnd((P, gc * 4 // l), 27),
+        reduce_target=rnd((P, max(gc // l // l, 1)), 28),
+    )
+    return pk, g
+
+
+def benchmark_srs(curve: Curve, n: int, pp: PackedSharingParams, seed: int = 1) -> dict:
+    """The prove's random SRS pair: "c", ``new_single`` (packed levels,
+    identical across parties, dpoly_comm.rs:197-219); "d", ``new_random``
+    with root levels for d_open, its levels capped at
+    max(n + 2 - log2 N, log2 N) (dpoly_comm.rs:222; the floor keeps the
+    leader tree-top's commit at level log2 N inside the SRS at small n,
+    one of the JAX package's documented deviations)."""
+    s_bits = pp.n.bit_length() - 1
+    return {"c": srs_random(curve, n + 2, seed + 17, packed_parties=pp.n, max_level=-1),
+            "d": srs_random(curve, n + 2, seed + 23, n_parties=pp.n,
+                            max_level=max(n + 2 - s_bits, s_bits))}
+
+
+def packed_proving_parameters(n: int, l: int, net: PartyNet, curve: Optional[Curve] = None,
+                              seed: int = 1, srs: Optional[dict] = None,
+                              device=DEFAULT) -> PackedProvingParameters:
+    """All inputs (dhyperplonk.rs:64-157) for N = 8l parties, on ``device``
+    (default CUDA; raises without a card).  ``srs``: an optional
+    {"c": ..., "d": ...} in place of ``benchmark_srs``."""
+    curve = bls12_381_g1(device) if curve is None else curve
+    F = curve.fr
+    pp = PackedSharingParams(F, l)
+    if net.n != pp.n:
+        raise ValueError(f"a net of {net.n} parties for l = {l} (N = {pp.n})")
+    P = net.local_parties
+    gc = 1 << n
+    r = lambda shape, k: F.random(shape, seed * 1009 + k)  # noqa: E731
+    pts00, pts01, pts10 = _corner_points(F)
+    V = r((P, gc * 4 // l), 1)
+    ssigma = r((P, gc * 4 // l), 2)
+    srs = benchmark_srs(curve, n, pp, seed) if srs is None else srs
+    return PackedProvingParameters(
+        n=n, pp=pp, curve=curve,
+        V=V,
+        a_evals=fix_variable(F, V, pts00),
+        b_evals=fix_variable(F, V, pts01),
+        c_evals=fix_variable(F, V, pts10),
+        I=r((P, gc // l), 3), S1=r((P, gc // l), 4), S2=r((P, gc // l), 5),
+        I_p=r((P, gc // pp.n), 6), S1_p=r((P, gc // pp.n), 7), S2_p=r((P, gc // pp.n), 8),
+        ssigma=ssigma,
+        ssigma_p=r((P, gc * 4 // pp.n), 9),
+        ssigma_a=fix_variable(F, ssigma, pts00),
+        ssigma_b=fix_variable(F, ssigma, pts01),
+        ssigma_c=fix_variable(F, ssigma, pts10),
+        sid=r((P, gc * 4 // l), 10), sid_p=r((P, gc * 4 // pp.n), 11),
+        eq=r((P, gc // l), 12), eq_top_p=r((P, pp.n * 2), 13),
+        eq_r1=r((P, gc * 4 // l), 14), eq_r1_p=r((P, gc * 4 // pp.n), 15),
+        eq_r2=r((P, gc * 4 // l), 16), eq_r2_p=r((P, gc * 4 // pp.n), 17),
+        challenge=r((n,), 18), challenge_r1=r((n + 2,), 19), challenge_r2=r((n + 2,), 20),
+        alpha=r((), 21), beta=r((), 22), gamma=r((), 23),
+        d_commitment=srs["d"], c_commitment=srs["c"],
+        mask=r((P, gc * 4 // l), 24), unmask0=r((P, gc * 4 // l), 25),
+        unmask1=r((P, gc * 4 // l), 26), unmask2=r((P, gc * 4 // l), 27),
+        reduce_target=r((P, max(gc // l // l, 1)), 28),
+    )

@@ -14,8 +14,6 @@ Modes:
 
 from __future__ import annotations
 
-import torch
-
 # arkworks serialize_compressed sizes (bytes)
 SIZEOF = {
     "fr": 32,
@@ -70,8 +68,7 @@ class PartyNet:
     # ------------------------------------------------------------------
     # collectives (tensor semantics + accounting)
     # ------------------------------------------------------------------
-    def gather_to_root(self, x: torch.Tensor, kind: str, count: int = 1, vec: bool = False,
-                       root: int = 0) -> torch.Tensor:
+    def gather_to_root(self, x, kind: str, count: int = 1, vec: bool = False, root: int = 0):
         """[P, ...] per-party values -> [N, ...] visible at the root.
 
         ``sim``: identity.  ``leader``: the single materialised party's
@@ -79,20 +76,25 @@ class PartyNet:
         self._count_gather(self.payload_bytes(kind, count, vec), root)
         return self.gather_data_only(x)
 
-    def gather_data_only(self, x: torch.Tensor) -> torch.Tensor:
-        """Data path of a gather whose bytes were counted with another payload."""
+    def gather_data_only(self, x):
+        """Data path of a gather whose bytes were counted with another
+        payload; ``x`` is a tensor or a tuple of them (a ``PointJ``)."""
+        if isinstance(x, tuple):
+            return type(x)(*(self.gather_data_only(a) for a in x))
         if self.mode == "leader":
             return x[0:1].expand((self.n,) + tuple(x.shape[1:]))
         return x
 
-    def scatter_from_root(self, x: torch.Tensor, kind: str, count: int = 1, vec: bool = False,
-                          root: int = 0) -> torch.Tensor:
+    def scatter_from_root(self, x, kind: str, count: int = 1, vec: bool = False, root: int = 0):
         """[N, ...] root-computed per-party values -> [P, ...]."""
         self._count_scatter(self.payload_bytes(kind, count, vec), root)
         return self.scatter_data_only(x)
 
-    def scatter_data_only(self, x: torch.Tensor) -> torch.Tensor:
-        """Data path of a scatter whose bytes are counted separately."""
+    def scatter_data_only(self, x):
+        """Data path of a scatter whose bytes are counted separately; ``x``
+        is a tensor or a tuple of them (a ``PointJ``)."""
+        if isinstance(x, tuple):
+            return type(x)(*(self.scatter_data_only(a) for a in x))
         if self.mode == "leader":
             return x[0:1]
         return x

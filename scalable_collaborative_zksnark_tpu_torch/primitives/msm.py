@@ -1,7 +1,15 @@
-"""Multi-scalar multiplication: the dense signed-digit Pippenger, and d_msm.
+"""Multi-scalar multiplication: the dense signed-digit Pippenger, the
+non-dense bucket cores, and d_msm.
 
-Mirrors the default path of the JAX package's ``primitives/msm.py``
-(dense core, signed digits, cost-model window width).  Per window of c
+Mirrors the JAX package's ``primitives/msm.py``.  Its default path (dense
+core, signed digits, cost-model window width) is this module's default;
+``SCZK_MSM_DENSE=0``, read at call time as the JAX package reads it,
+selects the non-dense cores instead (``_msm_ragged_core``, and
+``_msm_1d_buckets`` on it): unsigned digits, one key sort per window, and
+a loop over the largest bucket's length in which every (window, chunk,
+bucket) lane does one ``Curve.add_mixed_masked`` (the ``add_masked``
+kernel); ``msm_ragged`` then splits segments into chunks of at most 4,096
+points and sums the chunk partials.  Per window of c
 bits, every (window, entry) pair becomes one entry of a globally
 key-sorted list (key = window, segment, digit); ``cuda_g1.accumulate``
 walks that list in T lanes, one mixed add per entry, and a log2(T)-step
@@ -13,9 +21,12 @@ else by a prefix scan and a tree sum, and windows are combined by
 double-and-add and a tree sum.
 
 Differences from the JAX package, none of which changes a value:
-* no ``SCZK_*`` switches: the defaults (dense, signed, automatic c) are
-  the only path; the non-dense cores are not ported;
+* ``SCZK_MSM_DENSE`` is the one ``SCZK_*`` switch: the dense core always
+  uses signed digits and the cost-model c;
 * no ``MIN_MSM_SIZE`` zero padding (it bounded XLA compiles);
+* the non-dense ``msm`` runs its batch as chunks of one bucket grid (the
+  JAX package vmaps ``_msm_1d``; the masked steps past an instance's
+  largest bucket change nothing);
 * negating the point of a negative digit (``_negate_where``) happens
   inside the accumulate, which gathers each entry's base itself instead
   of taking a materialised list of gathered points;
@@ -33,6 +44,7 @@ from __future__ import annotations
 
 import functools
 import math
+import os
 
 import numpy as np
 import torch
@@ -55,6 +67,16 @@ bucket-serial kernel instead of the prefix scan (the JAX package's gate)."""
 
 MAX_DENSE_ENTRIES = 1 << 22
 """Entries E = W*N of one dense pass; beyond it the windows run in chunks."""
+
+RAGGED_CHUNK = 4096
+"""Largest chunk of a segment in the non-dense ``msm_ragged``: the bucket
+loop runs as many steps as the fullest bucket of any chunk holds."""
+
+
+def _dense_enabled() -> bool:
+    """The dense core, unless ``SCZK_MSM_DENSE`` is set to 0 (read at each
+    call, as the JAX package's ``_dense_enabled``)."""
+    return os.environ.get("SCZK_MSM_DENSE", "1") != "0"
 
 
 def _digit(scalars: torch.Tensor, c: int, w: int) -> torch.Tensor:
@@ -234,6 +256,92 @@ def _msm_ragged_dense(curve: Curve, points: PointJ, scalars_std: torch.Tensor, s
     return _horner_windows(curve, _weighted_bucket_totals(curve, acc), c)
 
 
+def _pick_c(max_size: int) -> int:
+    """Window width of the non-dense cores by the largest segment."""
+    if max_size >= 8192:
+        return 8
+    if max_size >= 512:
+        return 6
+    return 4
+
+
+def _chunk_plan(sizes, chunk):
+    """(chunk sizes, segment of each chunk): segments above ``chunk``
+    points split into full chunks and a remainder."""
+    chunk_sizes, seg_of_chunk = [], []
+    for s_idx, n in enumerate(sizes):
+        parts = [n] if chunk is None or n <= chunk else [chunk] * (n // chunk) + (
+            [n % chunk] if n % chunk else [])
+        chunk_sizes += parts
+        seg_of_chunk += [s_idx] * len(parts)
+    return tuple(chunk_sizes), tuple(seg_of_chunk)
+
+
+def _msm_ragged_core(curve: Curve, points: PointJ, scalars_std: torch.Tensor,
+                     chunk_sizes: tuple, c: int, affine: bool) -> PointJ:
+    """Non-dense segmented bucket MSM: points [N], scalars [N, L] split into
+    consecutive chunks of ``chunk_sizes``; returns the chunk partials
+    PointJ [len(chunk_sizes)].
+
+    Per window the entries sort by (chunk, unsigned digit); bucket k of
+    chunk j in window w is lane (w, j*2^c + k) of a [W, C*2^c] grid, which
+    step t of the loop extends by its t-th member (``add_mixed_masked``,
+    masked past the bucket's length; digit 0 adds nothing).  The loop runs
+    as many steps as the fullest bucket holds, a number read on the host."""
+    N = scalars_std.shape[0]
+    dev = scalars_std.device
+    K = 1 << c
+    C = len(chunk_sizes)
+    W = -(-scalars_std.shape[-1] * LIMB_BITS // c)
+    aff = points if affine else curve.normalize(points)
+    sc = scalars_std.to(torch.int64)
+    chunk_key = torch.repeat_interleave(torch.arange(C, device=dev) * K,
+                                        torch.tensor(chunk_sizes, device=dev))
+    digits = torch.stack([_digit(sc, c, w) for w in range(W)])  # [W, N]
+    sorted_k, sorted_i = torch.sort(chunk_key[None] + digits, dim=1, stable=True)
+    ks = torch.arange(C * K, device=dev)
+    queries = ks.repeat(W, 1)
+    starts = torch.searchsorted(sorted_k, queries)
+    lens = torch.searchsorted(sorted_k, queries, right=True) - starts
+    lens = torch.where(ks % K == 0, 0, lens)  # digit-0 buckets stay idle
+    acc = curve.infinity((W, C * K))
+    for t in range(int(lens.max())):
+        pid = torch.gather(sorted_i, 1, (starts + t).clamp(max=N - 1))  # [W, C*K]
+        acc = curve.add_mixed_masked(acc, map_points(lambda a: a[pid], aff), lens > t)
+    acc = map_points(lambda a: a.reshape(W, C, K, a.shape[-1]), acc)
+    return _horner_windows(curve, _weighted_bucket_totals(curve, acc), c)
+
+
+def _msm_1d_buckets(curve: Curve, points: PointJ, scalars_std: torch.Tensor, batch: int,
+                    c: int, affine: bool) -> PointJ:
+    """``batch`` independent non-dense MSMs of N points each (points [B*N],
+    scalars [B*N, L], instance-major) -> PointJ [B]: each instance is one
+    chunk of ``_msm_ragged_core``'s grid.  Its buckets, their members and
+    the order they are added in are the JAX package's ``_msm_1d_buckets``
+    per instance; the weighted reduce's lane gate sees W*B lanes instead
+    of W, which changes the Jacobian representative, not the value."""
+    N = scalars_std.shape[0] // batch
+    return _msm_ragged_core(curve, points, scalars_std, (N,) * batch, c, affine)
+
+
+def _segment_sums(curve: Curve, res: PointJ, seg_of_chunk: tuple) -> PointJ:
+    """Chunk partials [C] -> segment sums [S], each segment's chunks added
+    in order (the JAX package's host loop, msm.py:995-1005); one add per
+    chunk rank over the segments that have that many chunks."""
+    by_seg: dict = {}
+    for ci, sg in enumerate(seg_of_chunk):
+        by_seg.setdefault(sg, []).append(ci)
+    chunks = [by_seg[s] for s in range(len(by_seg))]
+    out = map_points(lambda a: a[[ch[0] for ch in chunks]], res)
+    for j in range(1, max(len(ch) for ch in chunks)):
+        segs = [s for s, ch in enumerate(chunks) if len(ch) > j]
+        summed = curve.add(map_points(lambda a: a[segs], out),
+                           map_points(lambda a: a[[chunks[s][j] for s in segs]], res))
+        out = map_points(lambda o, v: o.index_copy(0, torch.tensor(segs, device=o.device), v),
+                         out, summed)
+    return out
+
+
 def _align(x: torch.Tensor, bshape: tuple) -> torch.Tensor:
     """[b..., N, L] -> [bshape..., N, L], batch dims aligned as prefixes."""
     b = x.shape[:-2]
@@ -246,8 +354,9 @@ def msm(curve: Curve, points: PointJ, scalars_std: torch.Tensor, c: int = 8,
     """Batched MSM: points [..., N], scalars [..., N, L] (standard form);
     batch dims align as prefixes (extra scalar batch dims broadcast the
     points).  Returns PointJ [...].  ``c`` is a hint the dense core
-    replaces by its cost model, as the JAX package's default does;
-    ``affine``: the points are already normalized."""
+    replaces by its cost model, as the JAX package's default does; the
+    non-dense core takes it as given.  ``affine``: the points are already
+    normalized."""
     N = scalars_std.shape[-2]
     pb, sb = points.x.shape[:-2], scalars_std.shape[:-2]
     batch = sb if len(sb) >= len(pb) else pb
@@ -256,9 +365,13 @@ def msm(curve: Curve, points: PointJ, scalars_std: torch.Tensor, c: int = 8,
     if N <= NAIVE_MAX:
         return msm_naive(curve, pts, sc)
     Bn = math.prod(batch)
-    c = _pick_c_dense(Bn * N, Bn, sc.shape[-1] * LIMB_BITS)
     flat = map_points(lambda a: a.reshape(Bn * N, a.shape[-1]), pts)
-    res = _msm_ragged_dense(curve, flat, sc.reshape(Bn * N, sc.shape[-1]), (N,) * Bn, c, affine)
+    sc = sc.reshape(Bn * N, sc.shape[-1])
+    if _dense_enabled():
+        c = _pick_c_dense(Bn * N, Bn, sc.shape[-1] * LIMB_BITS)
+        res = _msm_ragged_dense(curve, flat, sc, (N,) * Bn, c, affine)
+    else:
+        res = _msm_1d_buckets(curve, flat, sc, Bn, c, affine)
     return map_points(lambda a: a.reshape(batch + a.shape[-1:]), res)
 
 
@@ -268,12 +381,14 @@ def msm_naive(curve: Curve, points: PointJ, scalars_std: torch.Tensor) -> PointJ
 
 
 def msm_ragged(curve: Curve, bases_list, scalars_list, c: int | None = None,
-               affine: bool = False):
-    """MSMs of different sizes in one dense pass.
+               affine: bool = False, chunk: int | None = RAGGED_CHUNK):
+    """MSMs of different sizes in one bucket pass.
 
     ``bases_list[i]``: PointJ broadcastable to [B..., N_i] (batch-free
     bases broadcast); ``scalars_list[i]``: [B..., N_i, L], all with the
-    same batch shape.  Returns a list of PointJ [B...], one per entry."""
+    same batch shape.  Returns a list of PointJ [B...], one per entry.
+    The non-dense core splits segments into chunks of at most ``chunk``
+    points and adds the chunk partials; the dense core does not chunk."""
     batch = scalars_list[0].shape[:-2]
     Bn = math.prod(batch)
     sizes, pts, scs = [], [], []
@@ -287,10 +402,17 @@ def msm_ragged(curve: Curve, bases_list, scalars_list, c: int | None = None,
         scs.append(s.reshape(Bn * n_i, s.shape[-1]))
         sizes += [n_i] * Bn  # batch-major segments per entry
     scal = torch.cat(scs)
-    if c is None:
-        c = _pick_c_dense(sum(sizes), len(sizes), scal.shape[-1] * LIMB_BITS)
-    res = _msm_ragged_dense(curve, map_points(lambda *a: torch.cat(a), *pts), scal,
-                            tuple(sizes), c, affine)
+    flat = map_points(lambda *a: torch.cat(a), *pts)
+    if _dense_enabled():
+        if c is None:
+            c = _pick_c_dense(sum(sizes), len(sizes), scal.shape[-1] * LIMB_BITS)
+        res = _msm_ragged_dense(curve, flat, scal, tuple(sizes), c, affine)
+    else:
+        if c is None:
+            c = _pick_c(max(sizes))
+        chunk_sizes, seg_of_chunk = _chunk_plan(sizes, chunk)
+        res = _msm_ragged_core(curve, flat, scal, chunk_sizes, c, affine)
+        res = _segment_sums(curve, res, seg_of_chunk)
     return [map_points(lambda a, k=k: a[k * Bn:(k + 1) * Bn].reshape(batch + a.shape[-1:]), res)
             for k in range(len(scalars_list))]
 

@@ -26,16 +26,20 @@ def cuda():
 @pytest.mark.gpu
 def test_g1_kernels_match_plain_on_card(cuda):
     """Each G1 kernel bit for bit against its plain version, on points
-    with Z != 1 and an equal pair, a cancelling pair and infinities."""
+    with Z != 1 and an equal pair, a cancelling pair and infinities (the
+    masked ops with a mask of 0s and 1s)."""
     C = bls12_381_g1(cuda)
     spec = C.fq.spec
     P = C.double(chip_smoke.rand_points_flat(C, 32, 1))
     Q = C.double(chip_smoke.rand_points_flat(C, 32, 2))
     p1, p2 = chip_smoke._edge_points(C, P, Q)
     grid = map_points(lambda a: a[:36].reshape(6, 6, -1), p1)
+    mask = torch.arange(p1.x.shape[0], device=cuda) % 3 != 1
     for name, args in (("add", (p1, p2)), ("add_mixed", (p1, C.normalize(p2))), ("double", (p1,)),
                        ("scalar_mul", (p1, C.fr.random((p1.x.shape[0],), 5))),
-                       ("horner", (grid, 4)), ("bucket_serial", (grid,))):
+                       ("horner", (grid, 4)), ("bucket_serial", (grid,)),
+                       ("add_masked", (p1, C.normalize(p2), mask)),
+                       ("add_reset", (p1, C.normalize(p2), mask))):
         kern = getattr(cuda_g1, name)
         for a, b in zip(kern(spec, *args), kern.plain(spec, *args), strict=True):
             assert torch.equal(a, b), name

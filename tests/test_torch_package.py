@@ -10,13 +10,15 @@ import pytest
 import torch
 
 import chip_smoke
-from scalable_collaborative_zksnark_tpu_torch import convert, cuda_build
+from scalable_collaborative_zksnark_tpu_torch import bench, convert, cuda_build
 from scalable_collaborative_zksnark_tpu_torch.curves import cuda_g1
 from scalable_collaborative_zksnark_tpu_torch.curves.g1 import PointJ, bls12_381_g1
 from scalable_collaborative_zksnark_tpu_torch.examples import sumcheck as example
 from scalable_collaborative_zksnark_tpu_torch.fields import cuda_fr
 from scalable_collaborative_zksnark_tpu_torch.fields import fr as fr_module
 from scalable_collaborative_zksnark_tpu_torch.fields.fr import get_field
+from scalable_collaborative_zksnark_tpu_torch.hyperplonk.params import packed_proving_parameters
+from scalable_collaborative_zksnark_tpu_torch.mpc.net import PartyNet
 from scalable_collaborative_zksnark_tpu_torch.primitives import cuda_sumcheck
 from scalable_collaborative_zksnark_tpu_torch.primitives import sumcheck as sumcheck_module
 from scalable_collaborative_zksnark_tpu_torch.utils import timer
@@ -65,6 +67,12 @@ def test_entry_points_default_to_cuda(no_cuda):
         bls12_381_g1()
     with pytest.raises(RuntimeError, match="cuda"):
         convert.points_from_numpy([np.zeros((2, 24), np.uint32)] * 3)
+    with pytest.raises(RuntimeError, match="cuda"):
+        packed_proving_parameters(4, 1, PartyNet(8, "leader"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench.main(["--n", "4", "--l", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench.run(4, 1)
     assert get_field("bls12_381_fr", device="cpu").device.type == "cpu"
     assert bls12_381_g1("cpu").device.type == "cpu"
     assert convert.from_numpy(np.zeros((2, 16), np.uint32), "cpu").device.type == "cpu"
@@ -114,6 +122,8 @@ def test_cpu_g1_calls_launch_nothing():
     cuda_g1.bucket_serial(spec, grid)
     keys = torch.zeros(2, dtype=torch.int64)
     cuda_g1.accumulate(spec, keys, keys, keys.bool(), P, 1, 2)
+    C.add_mixed_masked(P, P, torch.tensor([True, False]))
+    C.add_mixed_reset(P, P, torch.tensor([False, True]))
     assert (_g1_launches(), cuda_g1.accumulate.repaired) == before
 
 
@@ -154,7 +164,9 @@ def test_non_cuda_tensor_is_refused():
     pt = (torch.zeros((4, 24), dtype=torch.int32, device="meta"),) * 3
     for call in (lambda: cuda_g1.add(spec, pt, pt), lambda: cuda_g1.double(spec, pt),
                  lambda: cuda_g1.horner(spec, pt, 2), lambda: cuda_g1.bucket_serial(spec, pt),
-                 lambda: cuda_g1.scalar_mul(spec, pt, a)):
+                 lambda: cuda_g1.scalar_mul(spec, pt, a),
+                 lambda: cuda_g1.add_masked(spec, pt, pt, torch.ones(4, dtype=torch.bool)),
+                 lambda: cuda_g1.add_reset(spec, pt, pt, torch.ones(4, dtype=torch.bool))):
         with pytest.raises(TypeError):
             call()
 
