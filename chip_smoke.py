@@ -494,17 +494,20 @@ def masked_inputs(curve, m: int):
 def check_masked(curve, int_rate: float, lat_ms: float) -> dict:
     """add_masked and add_reset on 2^16 random points plus the edge lanes
     against their plain versions, and timed; the bound counts 11 products
-    per masked random lane (4 + 7 on a doubling lane, 4 on the cancel)."""
+    per masked random lane (4 + 7 on a doubling lane, 4 on the cancel),
+    and per lane the mask byte, the operand it copies or adds to and its
+    output, with the second operand only where the mask is set."""
     spec = curve.fq.spec
     m = 1 << 16
     p1, a2, mask = masked_inputs(curve, m)
     M = p1.x.shape[0]
     products = 11 * int(mask[:m].sum()) + 2 * (4 + 7) + 4
+    nbytes = M * (1 + 2 * 288) + int(mask.sum()) * 288
     rows = {}
     for op in ("add_masked", "add_reset"):
         kern = getattr(cuda_g1, op)
         err = _equal(f"g1 {op}", kern(spec, p1, a2, mask), kern.plain(spec, p1, a2, mask))
-        bound = _g1_bound(products, M * (3 * 288 + 1), ADD_DEPTH + DOUBLE_DEPTH, int_rate, lat_ms)
+        bound = _g1_bound(products, nbytes, ADD_DEPTH + DOUBLE_DEPTH, int_rate, lat_ms)
         rows[f"g1_{op}"] = _g1_row(op, (M, spec.num_limbs), err,
                                    _ms(lambda: kern(spec, p1, a2, mask)),
                                    _ms(lambda: kern.plain(spec, p1, a2, mask), reps=3), bound)
@@ -671,19 +674,21 @@ class _Recorder:
     """Stands in for a module of the port while the main path runs: every
     attribute is the module's own, and each call to one of ``names`` is
     appended to ``calls`` as (prefix + name, arguments, result): the
-    kernel's name in the kernel table.  It launches nothing itself, so the
-    wrappers' launch counts are unchanged."""
+    kernel's name in the kernel table, or, given ``keep``, handed to
+    ``keep(calls, entry)``, which files the entries it samples.  It launches
+    nothing itself, so the wrappers' launch counts are unchanged."""
 
-    def __init__(self, module, prefix: str, names, calls: list):
+    def __init__(self, module, prefix: str, names, calls: list, keep=None):
         self._module = module
+        keep = keep or list.append
         for name in names:
-            setattr(self, name, self._keep(prefix + name, getattr(module, name), calls))
+            setattr(self, name, self._keep(prefix + name, getattr(module, name), calls, keep))
 
     @staticmethod
-    def _keep(name, fn, calls):
+    def _keep(name, fn, calls, keep):
         def call(*args):
             out = fn(*args)
-            calls.append((name, args, out))
+            keep(calls, (name, args, out))
             return out
         return call
 
@@ -771,34 +776,38 @@ def msm_config(dense: bool):
             os.environ["SCZK_MSM_DENSE"] = before
 
 
+class _LoopEnds:
+    """A ``keep`` for ``_Recorder`` that files the first and the last call
+    of every chained loop: a loop's steps chain, each taking the last
+    step's result as its first operand, so a call whose first operand is
+    not the previous result starts a loop."""
+
+    def __init__(self):
+        self.last = None
+
+    def __call__(self, calls: list, entry):
+        prev = self.last
+        if prev is None or entry[1][1][0] is not prev[2][0]:
+            self.close(calls)
+            calls.append(entry)
+        self.last = entry
+
+    def close(self, calls: list):
+        if self.last is not None and calls[-1] is not self.last:
+            calls.append(self.last)
+
+
 @contextlib.contextmanager
 def sampling_masked():
     """Keep the first and the last ``add_masked`` call of every bucket loop
-    in the block, as (kernel name, arguments, result): a loop's steps
-    chain, each taking the last step's result as its first operand, so a
-    call whose first operand is not the previous result starts a loop."""
-    kept, last = [], [None]
-
-    def call(spec, p1, p2, mask):
-        out = cuda_g1.add_masked(spec, p1, p2, mask)
-        entry = ("g1_add_masked", (spec, p1, p2, mask), out)
-        prev = last[0]
-        if prev is None or p1[0] is not prev[2][0]:
-            if prev is not None and kept[-1] is not prev:
-                kept.append(prev)
-            kept.append(entry)
-        last[0] = entry
-        return out
-
-    rec = _Recorder(cuda_g1, "g1_", (), [])
-    rec.add_masked = call
-    g1_module.cuda_g1 = rec
+    in the block, as (kernel name, arguments, result)."""
+    kept, ends = [], _LoopEnds()
+    g1_module.cuda_g1 = _Recorder(cuda_g1, "g1_", ("add_masked",), kept, keep=ends)
     try:
         yield kept
     finally:
         g1_module.cuda_g1 = cuda_g1
-        if last[0] is not None and kept[-1] is not last[0]:
-            kept.append(last[0])
+        ends.close(kept)
 
 
 def prove_phase(launches: dict, replayed: dict) -> dict:
@@ -809,9 +818,7 @@ def prove_phase(launches: dict, replayed: dict) -> dict:
     prove's first and last ``add_masked`` step of every loop is replayed
     through the plain version."""
     n, l = PROVE["n"], PROVE["l"]
-    report = bench_module.run(n, l, "cuda", repeat=3)
-    pk, net = report.pop("pk"), report.pop("net")
-    del report["bundle"]
+    report, (pk, net, _) = bench_module.run(n, l, "cuda", repeat=3)
     _check_pin(f"prove_n{n}_l{l}", int(report["digest"], 16))
     for dense in (True, False):
         key = "prove" if dense else "prove_nondense"
@@ -832,18 +839,18 @@ def prove_phase(launches: dict, replayed: dict) -> dict:
     report["add_masked_replay_max_abs_err"] = errs["g1_add_masked"]
     report["comm_pinned"] = list(PINS[f"prove_n{n}_l{l}_comm"])
     del kept
-    report["profile"] = profile_prove(pk, net, n, report["value"])
+    report["profile"] = profile_prove(pk, net, n)
     del pk
     return report
 
 
-def profile_prove(pk, net, n: int, prove_s: float) -> dict:
+def profile_prove(pk, net, n: int) -> dict:
     """One dense prove under ``torch.profiler`` (host and CUDA activity):
     the device time summed over every kernel and copy, its share of the
-    profiled wall time and of ``prove_s`` (the unprofiled median), and the
-    kernels that took most of it.  The ``timed`` spans' ranges, which the
-    profiler also reports with device time, are left out.  Without device
-    events the shares are None: not measured."""
+    same prove's wall time, and the kernels that took most of it.  The
+    ``timed`` spans' ranges, which the profiler also reports with device
+    time, are left out.  Without device events the share is None: not
+    measured."""
     torch.cuda.synchronize()
     timer.clear()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -860,8 +867,7 @@ def profile_prove(pk, net, n: int, prove_s: float) -> dict:
                   key=lambda t: -t[1])
     busy = sum(t for _, t, _ in kern)
     return {"profiled_wall_s": wall, "device_busy_s": busy,
-            "busy_share_of_profiled": busy / wall if kern else None,
-            "busy_share_of_prove": busy / prove_s if kern else None,
+            "busy_share": busy / wall if kern else None,
             "top_device_s": [[k, t, c] for k, t, c in kern[:12]]}
 
 

@@ -12,6 +12,7 @@ import torch
 import chip_smoke
 from scalable_collaborative_zksnark_tpu_torch import bench, convert, cuda_build
 from scalable_collaborative_zksnark_tpu_torch.curves import cuda_g1
+from scalable_collaborative_zksnark_tpu_torch.curves import g1 as g1_module
 from scalable_collaborative_zksnark_tpu_torch.curves.g1 import PointJ, bls12_381_g1
 from scalable_collaborative_zksnark_tpu_torch.examples import sumcheck as example
 from scalable_collaborative_zksnark_tpu_torch.fields import cuda_fr
@@ -150,6 +151,24 @@ def test_chip_smoke_replays_main_path_calls():
     name, (spec, a, b), _ = next(c for c in calls if c[0] == "fr_mul")
     with pytest.raises(AssertionError, match="fr_mul"):
         chip_smoke.replay([(name, (spec, a, b), cuda_fr.add(spec, a, b))])
+
+
+def test_chip_smoke_samples_loop_ends():
+    """sampling_masked keeps the first and the last add_masked step of each
+    chained loop, each once, and the kept steps replay bit-equal."""
+    C = bls12_381_g1("cpu")
+    P = C.double(C.from_affine_ints([None, None]))
+    mask = torch.tensor([True, False])
+    steps = []
+    with chip_smoke.sampling_masked() as kept:
+        for length in (3, 1, 2):
+            acc = P
+            for _ in range(length):
+                acc = C.add_mixed_masked(acc, P, mask)
+                steps.append(acc.x)
+    assert g1_module.cuda_g1 is cuda_g1
+    assert [id(k[2][0]) for k in kept] == [id(steps[i]) for i in (0, 2, 3, 4, 5)]
+    assert chip_smoke.replay(kept)[0] == {"g1_add_masked": 5}
 
 
 def test_non_cuda_tensor_is_refused():
