@@ -8,8 +8,9 @@ Phases (any failure raises and exits non-zero):
 1. print the card's name and power limit; build every kernel from
    ``scalable_collaborative_zksnark_tpu_torch/csrc`` (one ``nvcc`` each,
    in parallel);
-2. hold each kernel (Fr mul/add/sub, the Fq instances, the sumcheck
-   fold phase; the G1 point ops, ``add_masked`` and ``add_reset`` on 2^16
+2. hold each kernel (Fr mul/add/sub, the Fq instances, the limb-major
+   and tiled Fr products on 2^20 elements, also against Fr mul after the
+   layout transform; the sumcheck fold phase; the G1 point ops, ``add_masked`` and ``add_reset`` on 2^16
    points and an edge set, the scalar ladder on 1,024 full scalars and 0,
    1, r - 1, the accumulate on a forced x-collision) bit for bit against
    its plain PyTorch version on the card, and time both (CUDA events,
@@ -41,7 +42,15 @@ Phases (any failure raises and exits non-zero):
    and last ``add_masked`` step of every bucket loop replayed through the
    plain version; one more dense prove under ``torch.profiler`` (device
    time by kernel, the device's busy share); the (6, 1) prove in both
-   configurations, pinned;
+   configurations, pinned; the int8-engine configuration (``SCZK_MXU=1``):
+   the gate identity against its pin, ``mxu_sumcheck.product_phase``
+   against the fold-phase kernel on ``[6, 2^13]`` tables, the (16, 8)
+   prove (warm-up and three timed proves, the last counted on its own:
+   launches and int8 products) and the (6, 1) prove, pinned;
+   ``scripts/mxu_micro.py``'s rows at its sizes;
+   the ``scripts/exp_fieldmul.py`` path at 2^20 with its counts set to 0
+   just before it: four formulations equal, both strided kernels
+   launched, the product pinned;
 6. the reference's sumcheck envelope, l = 32, with the seeds of
    ``examples/sumcheck.py``: ``c_sumcheck_product`` at n = 26 (pinned),
    local ``sumcheck_product`` at n = 20 (pinned), ``c_sumcheck_product``
@@ -57,9 +66,10 @@ points for the MSM paths, the proves' canonical 64-bit digests, and the
 comm counters) were made from the JAX package on the CPU with the same
 seeds and the same digest code, by ``test_chip_smoke_pins`` in
 ``tests/test_torch_sumcheck.py``, ``test_chip_smoke_msm_pins`` in
-``tests/test_torch_msm.py`` and ``test_chip_smoke_prove_pins`` in
-``tests/test_torch_hyperplonk.py`` (marked slow), which recompute and
-check them.
+``tests/test_torch_msm.py``, ``test_chip_smoke_prove_pins`` in
+``tests/test_torch_hyperplonk.py`` and ``test_chip_smoke_fieldmul_pin`` in
+``tests/test_torch_fieldmul.py`` (marked slow), which recompute and check
+them.
 """
 
 from __future__ import annotations
@@ -83,6 +93,7 @@ from scalable_collaborative_zksnark_tpu_torch.curves import g1 as g1_module
 from scalable_collaborative_zksnark_tpu_torch.curves.g1 import PointJ, bls12_381_g1, map_points
 from scalable_collaborative_zksnark_tpu_torch.fields import cuda_fr
 from scalable_collaborative_zksnark_tpu_torch.fields import fr as fr_module
+from scalable_collaborative_zksnark_tpu_torch.fields import mxu
 from scalable_collaborative_zksnark_tpu_torch.fields.fr import get_field
 from scalable_collaborative_zksnark_tpu_torch.fields.config import int_to_limbs
 from scalable_collaborative_zksnark_tpu_torch.hyperplonk.collaborative import dhyperplonk
@@ -90,6 +101,7 @@ from scalable_collaborative_zksnark_tpu_torch.hyperplonk.params import packed_pr
 from scalable_collaborative_zksnark_tpu_torch.mpc.net import PartyNet
 from scalable_collaborative_zksnark_tpu_torch.primitives import cuda_sumcheck
 from scalable_collaborative_zksnark_tpu_torch.primitives import msm as msm_module
+from scalable_collaborative_zksnark_tpu_torch.primitives import mxu_sumcheck
 from scalable_collaborative_zksnark_tpu_torch.primitives import sumcheck as sumcheck_module
 from scalable_collaborative_zksnark_tpu_torch.primitives.poly_comm import rand_points_flat
 from scalable_collaborative_zksnark_tpu_torch.primitives.sumcheck import (
@@ -98,6 +110,7 @@ from scalable_collaborative_zksnark_tpu_torch.primitives.sumcheck import (
     sumcheck_product,
 )
 from scalable_collaborative_zksnark_tpu_torch.pss.pss import PackedSharingParams
+from scalable_collaborative_zksnark_tpu_torch.scripts import exp_fieldmul, mxu_micro
 from scalable_collaborative_zksnark_tpu_torch.utils import timer
 from scalable_collaborative_zksnark_tpu_torch.utils.digest import (
     limb_digest,
@@ -137,6 +150,8 @@ PINS = {
     "prove_n16_l8": 0x8D7A4D5DE7FF827B,
     "prove_n6_l1": 0x0D8B55994DD236A9,
     "prove_n16_l8_comm": (3303721, 3930193, 1078689, 1068745, 131),
+    # Field.mul of F.random((2^20,), 1) and F.random((2^20,), 2) (exp_fieldmul)
+    "exp_fieldmul": "418666c20302a906ec8cc4417ca1a4142bef5ee98880bc4009046fe174bba65e",
 }
 # The main path: dhyperplonk in leader mode at the JAX package's flagship
 # size, and the small size its CPU tests pin.
@@ -170,6 +185,11 @@ G1_KERNELS = {
     "g1_add_masked": (_G1_SRC, f"{_PALLAS_G1}:144"),
     "g1_add_reset": (_G1_SRC, f"{_PALLAS_G1}:161"),
 }
+_FR_SRC = "scalable_collaborative_zksnark_tpu_torch/csrc/fr.cu"
+FIELDMUL_KERNELS = {
+    "fr_mul_limb_major": (_FR_SRC, "scripts/exp_fieldmul.py:95"),
+    "fr_mul_tiled": (_FR_SRC, "scripts/exp_fieldmul.py:154"),
+}
 G1_WRAPPERS = ("add", "add_mixed", "double", "accumulate", "scalar_mul", "horner", "bucket_serial",
                "add_masked", "add_reset")
 # kernels that the MSM paths must launch (add_mixed and double are off the
@@ -181,9 +201,13 @@ PROVE_KERNELS = ("fr_mul", "fr_add", "fr_sub", "sumcheck_product_phase", "g1_add
                  "g1_scalar_mul", "g1_horner")
 PROVE_DENSE_KERNELS = PROVE_KERNELS + ("g1_accumulate",)
 PROVE_NONDENSE_KERNELS = PROVE_KERNELS + ("g1_add_masked",)
+# the int8-engine prove runs every product sumcheck without the phase kernel
+PROVE_MXU_KERNELS = tuple(k for k in PROVE_DENSE_KERNELS if k != "sumcheck_product_phase")
 OFF_PATH = {"g1_add_mixed": "off the leader path; held by phase 2 alone",
             "g1_double": "off the leader path; held by phase 2 alone",
-            "g1_add_reset": "no caller in either package; held by phase 2 alone"}
+            "g1_add_reset": "no caller in either package; held by phase 2 alone",
+            "fr_mul_limb_major": "off the prove; on the exp_fieldmul script's path",
+            "fr_mul_tiled": "off the prove; on the exp_fieldmul script's path"}
 FQ_MULS = 4 * 12 * 12 + 12  # 32-bit multiplies of one Fq CIOS product
 # products per op on the critical path of one thread (general or mixed
 # add: Z1Z1 -> U2 -> HH -> J -> Y3; double: B -> t -> ... -> Y3)
@@ -315,6 +339,35 @@ def check_elementwise(F, m: int, int_rate: float) -> list[dict]:
             if err:
                 raise AssertionError(f"{F.spec.name} {op} {tuple(x.shape)} x {tuple(y.shape)}: "
                                      f"kernel differs from plain version by {err}")
+    return rows
+
+
+def check_strided(F, int_rate: float) -> dict:
+    """The limb-major and tiled Fr products on 2^20 elements (random, the
+    edge values in the first 25 lanes) against their plain versions and,
+    back in the element-major layout, against Fr ``mul``; timed.  Bound:
+    the bytes of ``mul``, 3 x 64 B a product, against its 264 multiplies."""
+    m = 1 << 20
+    a, b = F.random((m,), 111), F.random((m,), 112)
+    edge = F.array_from_ints([0, 1, F.p - 1, F.spec.r % F.p, (F.p - 1) // 2])
+    a[:25], b[:25] = edge.repeat_interleave(5, dim=0), edge.repeat(5, 1)
+    ref = cuda_fr.mul(F.spec, a, b)
+    bound, by = _bound_ms(3 * m * F.L * 4, m * _mont_muls(F.spec.num_words), int_rate)
+    rows = {}
+    for name, kern, to, back in (
+            ("fr_mul_limb_major", cuda_fr.mul_limb_major, exp_fieldmul.to_limb_major,
+             exp_fieldmul.from_limb_major),
+            ("fr_mul_tiled", cuda_fr.mul_tiled, exp_fieldmul.to_tiled, exp_fieldmul.from_tiled)):
+        plain = getattr(cuda_fr, f"{kern.__name__}_plain")
+        x, y = to(a), to(b)
+        out = kern(F.spec, x, y)
+        err = max(_equal(name, out, plain(F.spec, x, y)),
+                  _equal(f"{name} against fr_mul", back(out), ref))
+        rows[name] = {"shape": list(x.shape), "max_abs_err": err,
+                      "ms": _ms(lambda: kern(F.spec, x, y)),
+                      "plain_ms": _ms(lambda: plain(F.spec, x, y)),
+                      "bound_ms": bound, "bound_by": by, "library_ms": None,
+                      **cuda_fr.attributes(F.spec, kern.__name__)}
     return rows
 
 
@@ -747,7 +800,8 @@ def replay(calls) -> tuple[dict, dict]:
 
 def _wrappers() -> dict:
     out = {"fr_mul": cuda_fr.mul, "fr_add": cuda_fr.add, "fr_sub": cuda_fr.sub,
-           "sumcheck_product_phase": cuda_sumcheck.product_phase}
+           "sumcheck_product_phase": cuda_sumcheck.product_phase,
+           "fr_mul_limb_major": cuda_fr.mul_limb_major, "fr_mul_tiled": cuda_fr.mul_tiled}
     out.update({f"g1_{n}": getattr(cuda_g1, n) for n in G1_WRAPPERS})
     return out
 
@@ -762,18 +816,31 @@ def _counts() -> dict:
 
 
 @contextlib.contextmanager
-def msm_config(dense: bool):
-    """The MSM configuration of the block: the dense core, or with
-    ``SCZK_MSM_DENSE=0`` the non-dense cores (read at each MSM call)."""
-    before = os.environ.pop("SCZK_MSM_DENSE", None)
-    if not dense:
-        os.environ["SCZK_MSM_DENSE"] = "0"
+def _env(name: str, value):
+    """``name`` set to ``value`` (or unset, with None) inside the block,
+    restored after it."""
+    before = os.environ.pop(name, None)
+    if value is not None:
+        os.environ[name] = value
     try:
         yield
     finally:
-        os.environ.pop("SCZK_MSM_DENSE", None)
+        os.environ.pop(name, None)
         if before is not None:
-            os.environ["SCZK_MSM_DENSE"] = before
+            os.environ[name] = before
+
+
+def msm_config(dense: bool):
+    """The MSM configuration of the block: the dense core, or with
+    ``SCZK_MSM_DENSE=0`` the non-dense cores (read at each MSM call)."""
+    return _env("SCZK_MSM_DENSE", None if dense else "0")
+
+
+def mxu_config():
+    """The int8-engine configuration of the block: ``SCZK_MXU=1`` (read at
+    each round loop), every product and single sumcheck on
+    ``mxu_sumcheck``."""
+    return _env("SCZK_MXU", "1")
 
 
 class _LoopEnds:
@@ -839,9 +906,40 @@ def prove_phase(launches: dict, replayed: dict) -> dict:
     report["add_masked_replay_max_abs_err"] = errs["g1_add_masked"]
     report["comm_pinned"] = list(PINS[f"prove_n{n}_l{l}_comm"])
     del kept
+    report.update(mxu_prove(pk, net, n, launches))
     report["profile"] = profile_prove(pk, net, n)
     del pk
     return report
+
+
+def mxu_prove(pk, net, n: int, launches: dict, repeat: int = 3) -> dict:
+    """The (n, l) prove with ``SCZK_MXU=1``: a warm-up, then ``repeat``
+    synchronised proves, each with the counts set to 0 just before it, so
+    the last one's launches and int8 products are those of one prove; its
+    digest and comm against the pins."""
+    key = f"prove_n{n}_l{pk.pp.l}"
+    runs = []
+    with mxu_config():
+        dhyperplonk(n, pk, net)
+        torch.cuda.synchronize()
+        for _ in range(repeat):
+            net.reset_comm()
+            _reset_counts()
+            mxu.matmuls = 0
+            t0 = time.perf_counter()
+            out = dhyperplonk(n, pk, net)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        launches["prove_mxu"] = _counts()
+        matmuls = mxu.matmuls
+    _check_pin(f"{key}_comm", _comm(net))
+    _check_pin(key, proof_digest(pk.curve, out))
+    if not matmuls or launches["prove_mxu"]["sumcheck_product_phase"]:
+        raise AssertionError(f"the SCZK_MXU prove made {matmuls} int8 products and "
+                             f"{launches['prove_mxu']['sumcheck_product_phase']} phase launches")
+    return {"prove_mxu_s": statistics.median(runs), "prove_mxu_runs": runs,
+            "prove_mxu_int8_matmuls": matmuls,
+            "prove_mxu_launches": {k: v for k, v in launches["prove_mxu"].items() if v}}
 
 
 def profile_prove(pk, net, n: int) -> dict:
@@ -872,17 +970,58 @@ def profile_prove(pk, net, n: int) -> dict:
 
 
 def small_prove() -> dict:
-    """The (6, 1) leader-mode prove in both MSM configurations, pinned."""
+    """The (6, 1) leader-mode prove in both MSM configurations and with
+    ``SCZK_MXU=1``, pinned."""
     n, l = SMALL_PROVE["n"], SMALL_PROVE["l"]
     net = PartyNet(8 * l, mode="leader")
     pk = packed_proving_parameters(n, l, net)
     digests = {}
-    for dense in (True, False):
-        with msm_config(dense):
-            digests["dense" if dense else "nondense"] = d = proof_digest(
-                pk.curve, dhyperplonk(n, pk, net))
+    for name, config in (("dense", msm_config(True)), ("nondense", msm_config(False)),
+                         ("mxu", mxu_config())):
+        with config:
+            digests[name] = d = proof_digest(pk.curve, dhyperplonk(n, pk, net))
         _check_pin(f"prove_n{n}_l{l}", d)
     return {k: f"0x{v:016x}" for k, v in digests.items()}
+
+
+def mxu_paths(F, launches: dict) -> dict:
+    """The gate identity with ``SCZK_MXU=1``, counted on its own, against
+    its pin; ``mxu_sumcheck.product_phase`` against the fold-phase kernel on
+    the ``[6, 2^13]`` tables of phase 2 (bit for bit), both timed."""
+    _, _, gate = gate_identity(F)
+    with mxu_config():
+        _reset_counts()
+        mxu.matmuls = 0
+        proof = gate()
+        torch.cuda.synchronize()
+        launches["gate_identity_mxu"] = _counts()
+        out = {"gate_identity_mxu_int8_matmuls": mxu.matmuls,
+               "gate_identity_mxu_ms": _host_ms(gate, 3)}
+    _check_pin("gate", limb_digest(proof))
+    f, g, ch = _phase_inputs(F, 6, 1 << 13)
+    out["product_phase_max_abs_err"] = _equal(
+        "mxu_sumcheck.product_phase", mxu_sumcheck.product_phase(F, f, g, ch, 2),
+        cuda_sumcheck.product_phase(F, f, g, ch, 2))
+    out["product_phase_6x2e13_mxu_ms"] = _host_ms(
+        lambda: mxu_sumcheck.product_phase(F, f, g, ch, 0), 3)
+    out["product_phase_6x2e13_kernel_ms"] = _host_ms(
+        lambda: cuda_sumcheck.product_phase(F, f, g, ch, 0), 3)
+    return out
+
+
+def fieldmul_path(launches: dict) -> list[dict]:
+    """``scripts/exp_fieldmul.py``'s ``run`` at 2^20, counted on its own:
+    the four formulations must match and the product equal the JAX-made
+    pin."""
+    _reset_counts()
+    rows = exp_fieldmul.run(20, "cuda")
+    torch.cuda.synchronize()
+    launches["exp_fieldmul"] = _counts()
+    bad = [r["name"] for r in rows if not r["match"]]
+    if bad:
+        raise AssertionError(f"exp_fieldmul: {bad} differ from A")
+    _check_pin("exp_fieldmul", rows[0]["digest"])
+    return rows
 
 
 def main() -> int:
@@ -909,6 +1048,7 @@ def main() -> int:
 
     # 2. kernels against their plain versions
     fr_rows = check_elementwise(F, 1 << 20, int_rate)
+    strided_rows = check_strided(F, int_rate)
     fq_rows = check_elementwise(Fq, 1 << 20, int_rate)
     phase_err = check_phase(F, [(B, M) for B in (1, 6) for M in (2, 128, 1 << 13)])
     phase_row = dict(time_phase(F, 6, 1 << 13, int_rate), max_abs_err=phase_err)
@@ -989,6 +1129,12 @@ def main() -> int:
     prove = prove_phase(launches, replayed)
     prove["n6_l1_digests"] = small_prove()
     print(json.dumps({"prove": prove}), flush=True)
+    print(json.dumps({"mxu": mxu_paths(F, launches)}), flush=True)
+    micro = mxu_micro.run("cuda")
+    if not micro[4]["equal_to_mxu"]:
+        raise AssertionError("mxu_micro: the int8 product phase differs from the phase kernel")
+    print(json.dumps({"mxu_micro": micro}), flush=True)
+    print(json.dumps({"exp_fieldmul": fieldmul_path(launches)}), flush=True)
 
     # 6. the reference's sumcheck envelope
     run = envelope(F)
@@ -1016,8 +1162,9 @@ def main() -> int:
     print(json.dumps({"paths": paths}), flush=True)
 
     # 8. kernel table: launches summed over the paths (gate identity, SRS
-    # bases, c_commit, d_commit, c_open, each also non-dense, and the
-    # prove in both configurations), each counted on its own
+    # bases, c_commit, d_commit, c_open, each also non-dense, the prove in
+    # both MSM configurations and with SCZK_MXU=1, the SCZK_MXU gate
+    # identity, exp_fieldmul), each counted on its own
     zero = [k for k in KERNELS
             if not launches["gate_identity"][k] or not replayed["gate_identity"].get(k)]
     msm_paths = ("srs_bases", "c_commit", "d_commit", "c_open")
@@ -1025,6 +1172,8 @@ def main() -> int:
     zero += [f"{k} (prove)" for k in PROVE_DENSE_KERNELS if not launches["prove"][k]]
     zero += [f"{k} (non-dense prove)" for k in PROVE_NONDENSE_KERNELS
              if not launches["prove_nondense"][k]]
+    zero += [f"{k} (SCZK_MXU prove)" for k in PROVE_MXU_KERNELS if not launches["prove_mxu"][k]]
+    zero += [f"{k} (exp_fieldmul)" for k in FIELDMUL_KERNELS if not launches["exp_fieldmul"][k]]
     if zero:
         raise AssertionError(f"kernels not launched on the main paths: {zero}")
     rows = {f"fr_{r['op']}": dict(r, **cuda_fr.attributes(F.spec, r["op"])) for r in fr_rows}
@@ -1032,8 +1181,9 @@ def main() -> int:
     rows["sumcheck_product_phase"] = dict(phase_row, **phase_attrs["round"],
                                           partial_reduce=phase_attrs["partial_reduce"])
     rows.update(g1_rows)
+    rows.update(strided_rows)
     kernels = []
-    for name, (source, replaces) in {**KERNELS, **G1_KERNELS}.items():
+    for name, (source, replaces) in {**KERNELS, **FIELDMUL_KERNELS, **G1_KERNELS}.items():
         r = rows[name]
         by_path = {p: n[name] for p, n in launches.items() if n[name]}
         row = {

@@ -23,7 +23,7 @@ import time
 
 import torch
 
-from .device import DEFAULT, resolve
+from .device import DEFAULT, resolve, sync
 from .hyperplonk.collaborative import dhyperplonk
 from .hyperplonk.params import packed_proving_parameters
 from .mpc.net import PartyNet
@@ -37,11 +37,6 @@ PINS = {
     (16, 8): 0x8D7A4D5DE7FF827B,
 }
 SPANS = ("Commit", "Gate identity", "Wire identity", "Open")
-
-
-def _sync(device: torch.device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def conformance(n: int, l: int, digest: int) -> str:
@@ -61,27 +56,27 @@ def run(n: int, l: int, device=DEFAULT, repeat: int = 3):
     net = PartyNet(8 * l, mode="leader")
     t0 = time.perf_counter()
     torch.zeros(1, device=dev)
-    _sync(dev)
+    sync(dev)
     init_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     pk = packed_proving_parameters(n, l, net, device=dev)
-    _sync(dev)
+    sync(dev)
     setup_s = time.perf_counter() - t0
 
     net.reset_comm()
     out = dhyperplonk(n, pk, net)  # warm-up: kernel loads, first launches
-    _sync(dev)
+    sync(dev)
     comm = {"party0": list(net.comm(0)), "worker": list(net.comm(net.n - 1)),
             "rounds": net.rounds}
     runs = []
     for _ in range(max(repeat, 1)):
         t0 = time.perf_counter()
         out = dhyperplonk(n, pk, net)
-        _sync(dev)
+        sync(dev)
         runs.append(time.perf_counter() - t0)
 
     timer.clear()
-    timer.set_sync(lambda: _sync(dev))
+    timer.set_sync(lambda: sync(dev))
     try:
         out = dhyperplonk(n, pk, net)
     finally:

@@ -56,6 +56,27 @@ __device__ __forceinline__ void store_limbs(int32_t* dst, const uint32_t* w) {
   }
 }
 
+// 2N 16-bit limbs spaced `stride` int32 slots apart (limb-major layouts:
+// neighbouring threads read neighbouring slots of each limb row).
+template <int N>
+__device__ __forceinline__ void load_limbs_strided(const int32_t* src, size_t stride,
+                                                   uint32_t* w) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    w[k] = (uint32_t)src[(2 * k) * stride] | ((uint32_t)src[(2 * k + 1) * stride] << 16);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_limbs_strided(int32_t* dst, size_t stride,
+                                                    const uint32_t* w) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    dst[(2 * k) * stride] = (int32_t)(w[k] & 0xFFFFu);
+    dst[(2 * k + 1) * stride] = (int32_t)(w[k] >> 16);
+  }
+}
+
 // N packed words (the sumcheck's intermediate tables, 32 bytes per Fr).
 template <int N>
 __device__ __forceinline__ void load_words(const uint32_t* src, uint32_t* w) {

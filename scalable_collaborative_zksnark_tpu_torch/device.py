@@ -24,3 +24,9 @@ def resolve(device=DEFAULT) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def sync(device: torch.device):
+    """Wait for the work queued on ``device`` (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -15,7 +15,7 @@ import time
 
 import torch
 
-from ..device import DEFAULT
+from ..device import DEFAULT, sync
 from ..fields.fr import get_field
 from ..mpc.net import PartyNet
 from ..primitives.sumcheck import c_sumcheck_product, sumcheck_product
@@ -24,12 +24,10 @@ from ..pss.pss import PackedSharingParams
 
 def _timed(fn, device: torch.device):
     """(result, seconds) of one run, waiting for the card."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    sync(device)
     t0 = time.perf_counter()
     out = fn()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    sync(device)
     return out, time.perf_counter() - t0
 
 

@@ -16,6 +16,14 @@ The plain versions compute in ``int64`` on 16-bit limbs (Montgomery
 reduction for the product); they are the reference the tests and
 ``chip_smoke.py`` hold the kernels to, and nothing on the card's path
 calls them.
+
+``mul_limb_major`` and ``mul_tiled`` are the same Fr product in the
+limb-major layouts of the JAX package's ``scripts/exp_fieldmul.py``
+(replacing its ``mont_kernel_lm`` and ``mont_kernel_lm2``): ``int32 [16,
+M]`` with M a multiple of 1,024, and ``[M / 4096, 16, 8, 512]``.  Their
+plain versions run that script's own 16-bit CIOS limb by limb
+(``mul_cios16_plain``), a different schedule from ``mul_plain``'s column
+sums.
 """
 
 from __future__ import annotations
@@ -115,12 +123,71 @@ def mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     return cond_sub_p(spec, limbs[..., :L], limbs[..., L] + (carry << LIMB_BITS)).to(torch.int32)
 
 
+def mul_cios16_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor,
+                     limb_dim: int = -1) -> torch.Tensor:
+    """Montgomery a*b*R^-1 mod p by the unrolled 16-bit CIOS of the JAX
+    package's ``scripts/exp_fieldmul.py`` (its formulation B), one limb row
+    at a time on ``int64``; the limbs lie along ``limb_dim``.  Every partial
+    product is split into its 16-bit halves, so no running word passes
+    2^23; the result is below 2p before one conditional subtract."""
+    L = spec.num_limbs
+    p = int_to_limbs(spec.modulus, L)
+    a = a.movedim(limb_dim, 0).to(torch.int64)
+    b = b.movedim(limb_dim, 0).to(torch.int64)
+    zero = torch.zeros(a.shape[1:], dtype=torch.int64, device=a.device)
+    t = [zero] * (L + 1)
+    for i in range(L):
+        for j in range(L):  # t += a_i * b
+            prod = a[i] * b[j]
+            t[j] = t[j] + (prod & LIMB_MASK)
+            t[j + 1] = t[j + 1] + (prod >> LIMB_BITS)
+        m = ((t[0] & LIMB_MASK) * spec.n0inv) & LIMB_MASK
+        for j in range(L):  # t += m * p
+            mp = m * int(p[j])
+            t[j] = t[j] + (mp & LIMB_MASK)
+            t[j + 1] = t[j + 1] + (mp >> LIMB_BITS)
+        carry = t[0] >> LIMB_BITS
+        t = t[1:] + [zero]
+        t[0] = t[0] + carry
+    limbs, c = [], zero
+    for j in range(L):  # carry propagate
+        s = t[j] + c
+        limbs.append(s & LIMB_MASK)
+        c = s >> LIMB_BITS
+    c = c + t[L]
+    diff, borrow = [], zero
+    for j in range(L):  # subtract p if the value is >= p
+        d = limbs[j] - int(p[j]) - borrow
+        borrow = (d < 0).to(torch.int64)
+        diff.append(d & LIMB_MASK)
+    take = (c > 0) | (borrow == 0)
+    out = torch.where(take, torch.stack(diff), torch.stack(limbs))
+    return out.movedim(0, limb_dim).to(torch.int32)
+
+
+def mul_limb_major_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``mul_limb_major``: [16, M] operands."""
+    return mul_cios16_plain(spec, a, b, limb_dim=0)
+
+
+def mul_tiled_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``mul_tiled``: [G, 16, 8, 512] operands."""
+    return mul_cios16_plain(spec, a, b, limb_dim=1)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"sczk_fr_binary": [_I, _I, _VP, _VP, _VP, _I, _I, _I, _VP, _VP],
-               "sczk_fr_attrs": [_I, _I, _VP]}
+               "sczk_fr_attrs": [_I, _I, _VP],
+               "sczk_fr_mul_strided": [_I, _VP, _VP, _VP, _I, _VP, _VP],
+               "sczk_fr_strided_attrs": [_I, _VP]}
+TILE_SHAPE = (8, 512)
+TILE = TILE_SHAPE[0] * TILE_SHAPE[1]  # elements of one tile of the tiled layout
+# the strided products: layout number in fr.cu, and the multiple of
+# elements the kernel takes
+_LAYOUTS = {"mul_limb_major": (0, 1024), "mul_tiled": (1, TILE)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -197,14 +264,78 @@ def sub(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return sub_plain(spec, a, b) if _on_cpu(a, b) else _launch(sub, spec, a, b)
 
 
+def _strided_elements(wrapper, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> int:
+    """Elements M of a layout operand pair; raises on a shape, type or
+    field the kernel does not take."""
+    name = wrapper.__name__
+    if spec.num_words != 8 or spec.num_limbs != 16:
+        raise ValueError(f"{name} takes the 16-limb fields, not {spec.name}")
+    if a.shape != b.shape:
+        raise ValueError(f"{name}: operand shapes differ: {tuple(a.shape)} vs {tuple(b.shape)}")
+    if name == "mul_limb_major":
+        ok = a.dim() == 2 and a.shape[0] == 16
+        M = a.shape[1] if ok else 0
+    else:
+        ok = a.dim() == 4 and tuple(a.shape[1:]) == (16,) + TILE_SHAPE
+        M = a.shape[0] * TILE if ok else 0
+    row = _LAYOUTS[name][1]
+    if not ok or M == 0 or M % row:
+        want = "[16, M]" if name == "mul_limb_major" else "[G, 16, 8, 512]"
+        raise ValueError(f"{name} takes int32 {want} with M a positive multiple of {row}, "
+                         f"got {tuple(a.shape)}")
+    return M
+
+
+def _launch_strided(wrapper, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    for x in (a, b):
+        if x.device.type != "cuda" or x.dtype != torch.int32:
+            raise TypeError(f"kernel operands must be CUDA int32 tensors, got {x.device} {x.dtype}")
+    M = _strided_elements(wrapper, spec, a, b)
+    if M >= 2**31:
+        raise ValueError(f"{M} elements exceed one launch")
+    a, b = (x.contiguous() for x in (a, b))
+    a, b = (x.clone() if x.data_ptr() % 16 else x for x in (a, b))
+    out = torch.empty_like(a)
+    lib = cuda_build.library("fr", _SIGNATURES)
+    err = lib.sczk_fr_mul_strided(_LAYOUTS[wrapper.__name__][0], a.data_ptr(), b.data_ptr(),
+                                  out.data_ptr(), M, field_consts(spec).ctypes.data,
+                                  torch.cuda.current_stream(a.device).cuda_stream)
+    wrapper.launches += 1
+    cuda_build.check(err, f"fr {wrapper.__name__}")
+    return out
+
+
+def mul_limb_major(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Fr Montgomery product on limb-major int32 [16, M] (M a multiple of
+    1,024): the kernel on CUDA, ``mul_limb_major_plain`` on the CPU."""
+    if _on_cpu(a, b):
+        _strided_elements(mul_limb_major, spec, a, b)
+        return mul_limb_major_plain(spec, a, b)
+    return _launch_strided(mul_limb_major, spec, a, b)
+
+
+def mul_tiled(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Fr Montgomery product on tiled int32 [G, 16, 8, 512] (4,096 elements
+    a tile): the kernel on CUDA, ``mul_tiled_plain`` on the CPU."""
+    if _on_cpu(a, b):
+        _strided_elements(mul_tiled, spec, a, b)
+        return mul_tiled_plain(spec, a, b)
+    return _launch_strided(mul_tiled, spec, a, b)
+
+
 def attributes(spec: FieldSpec, op: str) -> dict:
     """Registers and spill (local) bytes per thread of ``op``'s kernel for
-    ``spec``'s width, from the card."""
+    ``spec``'s width (``mul``, ``add``, ``sub``, or a strided product),
+    from the card."""
     out = np.zeros(2, dtype=np.int32)
     lib = cuda_build.library("fr", _SIGNATURES)
-    cuda_build.check(lib.sczk_fr_attrs(_OPS[op], spec.num_words, out.ctypes.data),
-                     f"fr attributes of {op}")
+    if op in _LAYOUTS:
+        err = lib.sczk_fr_strided_attrs(_LAYOUTS[op][0], out.ctypes.data)
+    else:
+        err = lib.sczk_fr_attrs(_OPS[op], spec.num_words, out.ctypes.data)
+    cuda_build.check(err, f"fr attributes of {op}")
     return {"registers": int(out[0]), "spill_bytes": int(out[1])}
 
 
 mul.launches = add.launches = sub.launches = 0
+mul_limb_major.launches = mul_tiled.launches = 0

@@ -20,8 +20,11 @@ from __future__ import annotations
 
 import torch
 
+from ..fields import mxu
 from ..fields.fr import Field
+from ..fields.mxu import Red
 from ..mpc.net import PartyNet
+from ..primitives import mxu_sumcheck
 from ..primitives.acc_product import d_acc_product
 from ..primitives.poly_comm import c_commit, c_open, c_open_many
 from ..primitives.sumcheck import c_sumcheck_product, d_sumcheck_product, sumcheck_product
@@ -144,8 +147,9 @@ def _wire_b_sumchecks(pk: PackedProvingParameters, net: PartyNet, v1x, vx0, vx1,
     and consumes the same challenge ch_full[log2 N + g]: each round is one
     batched product round over the layers begun so far.  The leader rounds
     (log2 N per layer, on N-element tables) batch across layers with
-    per-layer challenges ch_full[i + k].  Returns per-layer transcripts
-    [3, n_loc_i + s, 3, L]."""
+    per-layer challenges ch_full[i + k].  With ``SCZK_MXU`` set the local
+    rounds run on the int8 engine (``_wire_b_rounds_mxu``).  Returns
+    per-layer transcripts [3, n_loc_i + s, 3, L]."""
     F = pk.pp.field
     s = net.n.bit_length() - 1
     half = v1x.shape[-2] // 2
@@ -159,20 +163,26 @@ def _wire_b_sumchecks(pk: PackedProvingParameters, net: PartyNet, v1x, vx0, vx1,
         slices.append((start, size))
         start, size = start + size // 2, size // 2
 
-    cur_f = cur_g = None
-    msgs = []
-    for g in range(1, R + 1):
-        if g <= G:
-            st, sz = slices[g - 1]
-            part = lambda t: t[..., st:st + sz, :]  # noqa: E731
-            newf = _stackp([part(eq_full), part(eq_full), part(vx0)])
-            newg = _stackp([part(v1x), part(vx0), part(vx1)])
-            cur_f = newf if cur_f is None else torch.cat([cur_f, newf], dim=-3)
-            cur_g = newg if cur_g is None else torch.cat([cur_g, newg], dim=-3)
-        msg, cur_f, cur_g = _product_round(F, cur_f, cur_g, ch_full[s + g])
-        msgs.append(msg)  # [P, 3A, 3, L]
-    cf = cur_f.reshape(P, G, 3, F.L)
-    cg = cur_g.reshape(P, G, 3, F.L)
+    def new_tables(g):  # layer g's tables, joining at global round g
+        st, sz = slices[g - 1]
+        part = lambda t: t[..., st:st + sz, :]  # noqa: E731
+        return (_stackp([part(eq_full), part(eq_full), part(vx0)]),
+                _stackp([part(v1x), part(vx0), part(vx1)]))
+
+    if mxu_sumcheck.available():
+        msgs, cf, cg = _wire_b_rounds_mxu(F, new_tables, ch_full[s:], P, G, R)
+    else:
+        cur_f = cur_g = None
+        msgs = []
+        for g in range(1, R + 1):
+            if g <= G:
+                newf, newg = new_tables(g)
+                cur_f = newf if cur_f is None else torch.cat([cur_f, newf], dim=-3)
+                cur_g = newg if cur_g is None else torch.cat([cur_g, newg], dim=-3)
+            msg, cur_f, cur_g = _product_round(F, cur_f, cur_g, ch_full[s + g])
+            msgs.append(msg)  # [P, 3A, 3, L]
+        cf = cur_f.reshape(P, G, 3, F.L)
+        cg = cur_g.reshape(P, G, 3, F.L)
 
     # per-layer gather accounting and local message sums
     summed = []
@@ -196,6 +206,54 @@ def _wire_b_sumchecks(pk: PackedProvingParameters, net: PartyNet, v1x, vx0, vx1,
         return summed
     lead = torch.stack(lead_msgs, dim=-3)  # [G, 3, s, 3, L]
     return [torch.cat([summed[i], lead[i]], dim=-3) for i in range(G)]
+
+
+def _wire_b_rounds_mxu(F: Field, new_tables, ch, P: int, G: int, R: int):
+    """The merged local rounds of ``_wire_b_sumchecks`` on the int8 engine
+    (``SCZK_MXU``; the JAX package's MXU branch): the tables stay redundant
+    across rounds, and one ``canon`` covers every message and both final
+    tables, split back per round (P * 3A rows a message, A = min(g, G)).
+    Round g uses ``ch[g]``.  Returns (per-round messages [P, 3A, 3, L],
+    finals f and g [P, G, 3, L])."""
+    spec = F.spec
+
+    def cat(a, b):
+        if a is None:
+            return b
+        W = max(a.W, b.W)
+        return Red(torch.cat([mxu._pad_w(a.arr, W), mxu._pad_w(b.arr, W)], dim=-3),
+                   max(a.bound, b.bound))
+
+    cur_f = cur_g = None
+    raw = []  # per global round: (t0, t1, t2) Red [P, 3A, W']
+    for g in range(1, R + 1):
+        if g <= G:
+            newf, newg = new_tables(g)
+            cur_f, cur_g = cat(cur_f, mxu.to_red(newf)), cat(cur_g, mxu.to_red(newg))
+        lof, hif = mxu_sumcheck._halves(cur_f)
+        log_, hig = mxu_sumcheck._halves(cur_g)
+        t0 = mxu.dot_red(spec, lof, log_)
+        t1 = mxu.dot_red(spec, hif, hig)
+        df = mxu.sub_red(spec, hif, lof)
+        dg = mxu.sub_red(spec, hig, log_)
+        t2 = mxu.dot_red(spec, mxu.add_red(hif, df), mxu.add_red(hig, dg))  # 2 hi - lo
+        raw.append((t0, t1, t2))
+        m_c, _ = mxu.fold_matrix(spec, F, ch[g], df.bound, df.W)
+        cur_f = mxu.add_red(lof, mxu.mul_shared(spec, df, m_c))
+        cur_g = mxu.add_red(log_, mxu.mul_shared(spec, dg, m_c))
+    flat = [t for tup in raw for t in tup] + [cur_f, cur_g]
+    Wm = max(t.W for t in flat)
+    rows = [mxu._pad_w(t.arr, Wm).reshape(-1, Wm) for t in flat]
+    limbs = mxu.canon(spec, F, Red(torch.cat(rows), max(t.bound for t in flat)))
+    msgs, off = [], 0
+    for g in range(1, R + 1):
+        cnt = P * 3 * min(g, G)
+        trip = [limbs[off + k * cnt:off + (k + 1) * cnt].reshape(P, -1, F.L) for k in range(3)]
+        msgs.append(torch.stack(trip, dim=-2))
+        off += 3 * cnt
+    cnt = P * 3 * G
+    return (msgs, limbs[off:off + cnt].reshape(P, G, 3, F.L),
+            limbs[off + cnt:off + 2 * cnt].reshape(P, G, 3, F.L))
 
 
 def _zerocheck_layer(pk, net, cur_v1x, cur_vx0, cur_vx1, cur_eq, ch, c):

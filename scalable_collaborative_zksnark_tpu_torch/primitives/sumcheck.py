@@ -22,7 +22,10 @@ the same oracle as the monolithic one.
 Tables are ``[..., M, L]`` (element axis -2, limb axis -1); party-batched
 variants put the party axis first.  Every full product fold (all rounds
 of a table) goes through ``cuda_sumcheck.product_phase``: the fold-phase
-kernel on the card, its plain version on the CPU.
+kernel on the card, its plain version on the CPU.  With ``SCZK_MXU`` set
+(to anything but 0, read at each call) every round loop runs on the int8
+engine first (``mxu_sumcheck``), as the JAX package's TPU default does;
+the transcript is the same.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import torch
 from ..fields.fr import Field
 from ..mpc.net import PartyNet
 from ..pss.pss import PackedSharingParams
-from . import cuda_sumcheck
+from . import cuda_sumcheck, mxu_sumcheck
 from .unpack import pss2ss
 
 
@@ -50,6 +53,8 @@ def _fold(F: Field, x, ch):
 
 def _rounds_single(F: Field, cur, challenges, start, count):
     """Fold ``count`` rounds; returns (messages list of [..., 2, L], cur)."""
+    if count > 0 and mxu_sumcheck.available():
+        return mxu_sumcheck.single_phase(F, cur, challenges, start, count)
     msgs = []
     for i in range(count):
         lo, hi = _halves(cur)
@@ -61,8 +66,11 @@ def _rounds_single(F: Field, cur, challenges, start, count):
 def _rounds_product(F: Field, cur_f, cur_g, challenges, start, count):
     """Product rounds; messages are (t0, t1, t2) triples [..., 3, L].
 
-    A full fold (count == log2 M) is one ``product_phase`` call; a partial
+    With ``SCZK_MXU`` set, any count runs on the int8 engine; otherwise a
+    full fold (count == log2 M) is one ``product_phase`` call and a partial
     one runs the unfused round loop."""
+    if count > 0 and mxu_sumcheck.available():
+        return mxu_sumcheck.product_phase(F, cur_f, cur_g, challenges, start, count)
     M = cur_f.shape[-2]
     if count > 0 and count == M.bit_length() - 1:
         return cuda_sumcheck.product_phase(F, cur_f, cur_g, challenges, start)

@@ -14,14 +14,17 @@ from scalable_collaborative_zksnark_tpu_torch import bench, convert, cuda_build
 from scalable_collaborative_zksnark_tpu_torch.curves import cuda_g1
 from scalable_collaborative_zksnark_tpu_torch.curves import g1 as g1_module
 from scalable_collaborative_zksnark_tpu_torch.curves.g1 import PointJ, bls12_381_g1
+from scalable_collaborative_zksnark_tpu_torch.examples import bench_micro, common
 from scalable_collaborative_zksnark_tpu_torch.examples import sumcheck as example
-from scalable_collaborative_zksnark_tpu_torch.fields import cuda_fr
+from scalable_collaborative_zksnark_tpu_torch.fields import cuda_fr, mxu
 from scalable_collaborative_zksnark_tpu_torch.fields import fr as fr_module
 from scalable_collaborative_zksnark_tpu_torch.fields.fr import get_field
 from scalable_collaborative_zksnark_tpu_torch.hyperplonk.params import packed_proving_parameters
 from scalable_collaborative_zksnark_tpu_torch.mpc.net import PartyNet
 from scalable_collaborative_zksnark_tpu_torch.primitives import cuda_sumcheck
+from scalable_collaborative_zksnark_tpu_torch.primitives import mxu_sumcheck
 from scalable_collaborative_zksnark_tpu_torch.primitives import sumcheck as sumcheck_module
+from scalable_collaborative_zksnark_tpu_torch.scripts import exp_fieldmul, microbench, mxu_micro
 from scalable_collaborative_zksnark_tpu_torch.utils import timer
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -74,6 +77,15 @@ def test_entry_points_default_to_cuda(no_cuda):
         bench.main(["--n", "4", "--l", "1"])
     with pytest.raises(RuntimeError, match="cuda"):
         bench.run(4, 1)
+    for entry in (exp_fieldmul.main, mxu_micro.main, microbench.main, bench_micro.main):
+        with pytest.raises(RuntimeError, match="cuda"):
+            entry([])
+    for run in (exp_fieldmul.run, mxu_micro.run, microbench.run):
+        with pytest.raises(RuntimeError, match="cuda"):
+            run()
+    with pytest.raises(RuntimeError, match="cuda"):
+        common.setup(common.base_parser("x").parse_args([]))
+    assert common.setup(common.base_parser("x").parse_args(["--device", "cpu"])).type == "cpu"
     assert get_field("bls12_381_fr", device="cpu").device.type == "cpu"
     assert bls12_381_g1("cpu").device.type == "cpu"
     assert convert.from_numpy(np.zeros((2, 16), np.uint32), "cpu").device.type == "cpu"
@@ -101,8 +113,35 @@ def test_cpu_calls_launch_nothing():
     f, g, ch = F.random((2, 8), 1), F.random((2, 8), 2), F.random((4,), 3)
     cuda_sumcheck.product_phase(F, f, g, ch, 0)
     F.sub(F.add(f, g), F.mul(f, g))
+    strided = cuda_fr.mul_limb_major.launches, cuda_fr.mul_tiled.launches
+    x = F.random((4096,), 4)
+    cuda_fr.mul_limb_major(F.spec, exp_fieldmul.to_limb_major(x), exp_fieldmul.to_limb_major(x))
+    cuda_fr.mul_tiled(F.spec, exp_fieldmul.to_tiled(x), exp_fieldmul.to_tiled(x))
     assert before == (cuda_fr.mul.launches, cuda_fr.add.launches, cuda_fr.sub.launches,
                       cuda_sumcheck.product_phase.launches)
+    assert strided == (cuda_fr.mul_limb_major.launches, cuda_fr.mul_tiled.launches)
+
+
+def test_mxu_matmuls_count(monkeypatch):
+    """``mxu.matmuls`` counts one per int8 product: a dot_red over a batch of
+    three tables makes three and its fold one more, mul_shared one; a whole
+    phase makes some, and the default path none."""
+    F = get_field("bls12_381_fr", device="cpu")
+    f, g = F.random((3, 8), 1), F.random((3, 8), 2)
+    monkeypatch.setattr(mxu, "matmuls", 0)
+    mxu.dot_red(F.spec, mxu.to_red(f), mxu.to_red(g))
+    assert mxu.matmuls == 4
+    red = mxu.to_red(f)
+    m_r, _ = mxu.fold_matrix(F.spec, F, g[0, 0], red.bound, red.W)
+    mxu.mul_shared(F.spec, red, m_r)
+    assert mxu.matmuls == 5
+    ch = F.random((3,), 3)
+    monkeypatch.setattr(mxu, "matmuls", 0)
+    sumcheck_module._rounds_product(F, f, g, ch, 0, 3)
+    assert mxu.matmuls == 0
+    monkeypatch.setenv("SCZK_MXU", "1")
+    msgs, _, _ = sumcheck_module._rounds_product(F, f, g, ch, 0, 3)
+    assert mxu_sumcheck.available() and len(msgs) == 3 and mxu.matmuls > 3 * 3 * 3
 
 
 def _g1_launches():
@@ -179,6 +218,12 @@ def test_non_cuda_tensor_is_refused():
         cuda_fr.mul(spec, a, a)
     with pytest.raises(TypeError):
         cuda_sumcheck.product_phase(get_field("bls12_381_fr", device="cpu"), a, a, a, 0)
+    lm = torch.zeros((16, 1024), dtype=torch.int32, device="meta")
+    tiled = torch.zeros((1, 16, 8, 512), dtype=torch.int32, device="meta")
+    with pytest.raises(TypeError):
+        cuda_fr.mul_limb_major(spec, lm, lm)
+    with pytest.raises(TypeError):
+        cuda_fr.mul_tiled(spec, tiled, tiled)
     spec = get_field("bls12_381_fq", device="cpu").spec
     pt = (torch.zeros((4, 24), dtype=torch.int32, device="meta"),) * 3
     for call in (lambda: cuda_g1.add(spec, pt, pt), lambda: cuda_g1.double(spec, pt),
@@ -243,3 +288,9 @@ def test_card_calls_count_launches(cuda):
     P = C.double(C.from_affine_ints([None, None]))
     C.add(P, P)
     assert (cuda_g1.add.launches, cuda_g1.double.launches) == (before[0] + 1, before[1] + 1)
+    x = F.random((4096,), 4)
+    before = cuda_fr.mul_limb_major.launches, cuda_fr.mul_tiled.launches
+    cuda_fr.mul_limb_major(F.spec, exp_fieldmul.to_limb_major(x), exp_fieldmul.to_limb_major(x))
+    cuda_fr.mul_tiled(F.spec, exp_fieldmul.to_tiled(x), exp_fieldmul.to_tiled(x))
+    assert (cuda_fr.mul_limb_major.launches, cuda_fr.mul_tiled.launches) == (
+        before[0] + 1, before[1] + 1)
