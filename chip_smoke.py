@@ -17,7 +17,11 @@ Phases (any failure raises and exits non-zero):
    median of 10 or more for the kernels); print each kernel's registers
    and spill bytes, and the latency of one dependent multiply-add (a
    one-thread chain) that the chain bounds of Horner, bucket-serial and
-   the ladder are built on;
+   the ladder are built on; the low-latency product of Horner and
+   bucket-serial (``csrc/fq_chain.cuh``) against Fq mul on 2^16 pairs
+   and edge values, with its one-thread chain latency; Horner and
+   bucket-serial on an edge grid (collisions that double and cancel,
+   infinities, K = 2, several segment counts);
 3. the sumcheck path: ``c_sumcheck_product`` in leader mode at the
    gate-identity shape of the n = 16, l = 8 prove, ``[1, 6, 2^13, 16]``
    tables; launch counts are read around this one call; digest pinned;
@@ -41,7 +45,9 @@ Phases (any failure raises and exits non-zero):
    digest and comm against the JAX-made pins; the non-dense prove's first
    and last ``add_masked`` step of every bucket loop replayed through the
    plain version; one more dense prove under ``torch.profiler`` (device
-   time by kernel, the device's busy share); the (6, 1) prove in both
+   time by kernel, Horner's and bucket-serial's, the device's busy share);
+   one whose point-add, Horner and bucket-serial call shapes are kept
+   (histograms; ``add`` timed at its most frequent lane counts); the (6, 1) prove in both
    configurations, pinned; the int8-engine configuration (``SCZK_MXU=1``):
    the gate identity against its pin, ``mxu_sumcheck.product_phase``
    against the fold-phase kernel on ``[6, 2^13]`` tables, the (16, 8)
@@ -74,6 +80,7 @@ them.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -173,6 +180,7 @@ KERNELS = {
         "scalable_collaborative_zksnark_tpu/primitives/pallas_sumcheck.py:38"),
 }
 _G1_SRC = "scalable_collaborative_zksnark_tpu_torch/csrc/g1.cu"
+_G1_CHAIN_SRC = "scalable_collaborative_zksnark_tpu_torch/csrc/g1_chain.cu"
 _PALLAS_G1 = "scalable_collaborative_zksnark_tpu/curves/pallas_g1.py"
 G1_KERNELS = {
     "g1_add": (_G1_SRC, f"{_PALLAS_G1}:129"),
@@ -180,8 +188,8 @@ G1_KERNELS = {
     "g1_double": (_G1_SRC, f"{_PALLAS_G1}:200"),
     "g1_accumulate": (_G1_SRC, f"{_PALLAS_G1}:180"),
     "g1_scalar_mul": (_G1_SRC, f"{_PALLAS_G1}:207"),
-    "g1_horner": (_G1_SRC, f"{_PALLAS_G1}:358"),
-    "g1_bucket_serial": (_G1_SRC, f"{_PALLAS_G1}:497"),
+    "g1_horner": (_G1_CHAIN_SRC, f"{_PALLAS_G1}:358"),
+    "g1_bucket_serial": (_G1_CHAIN_SRC, f"{_PALLAS_G1}:497"),
     "g1_add_masked": (_G1_SRC, f"{_PALLAS_G1}:144"),
     "g1_add_reset": (_G1_SRC, f"{_PALLAS_G1}:161"),
 }
@@ -212,6 +220,8 @@ FQ_MULS = 4 * 12 * 12 + 12  # 32-bit multiplies of one Fq CIOS product
 # products per op on the critical path of one thread (general or mixed
 # add: Z1Z1 -> U2 -> HH -> J -> Y3; double: B -> t -> ... -> Y3)
 ADD_DEPTH, DOUBLE_DEPTH = 5, 3
+# Horner and bucket-serial launches of one dense (16, 8) prove
+PROVE_CHAIN_LAUNCHES = (15, 12)
 
 
 def _smi(query: str) -> str:
@@ -235,6 +245,32 @@ def _ms(fn, reps: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _device_ms(fn, tag: str, reps: int = 10):
+    """Mean device milliseconds of the kernels whose name holds ``tag``
+    over ``reps`` runs of ``fn`` under ``torch.profiler`` (after one
+    warm-up run): the kernel's own time where the host's time per call
+    exceeds it, which events around the call would measure instead.  None
+    (not measured) when the profiler reports none of those launches."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if tag in e.key and _self_device_us(e) > 0]
+    if not events:
+        return None
+    return sum(_self_device_us(e) for e in events) / 1e3 / sum(e.count for e in events)
+
+
+def _self_device_us(event) -> float:
+    """A profiler event's own device time, microseconds (the attribute's
+    name before torch 2.4 was ``self_cuda_time_total``)."""
+    if hasattr(event, "self_device_time_total"):
+        return event.self_device_time_total
+    return event.self_cuda_time_total
 
 
 def _host_ms(fn, reps: int) -> float:
@@ -433,8 +469,9 @@ def chain_latency(curve) -> tuple[float, dict]:
     dependent 32x32->64 multiply-add measured on the card (a one-thread
     IMAD.WIDE chain, which uses no field code).  The diagnostics add what
     one product of csrc/fr.cuh takes in a one-thread chain: what this
-    implementation reaches, not a bound.  Both chains' results are checked
-    against host integers."""
+    implementation reaches, not a bound, and what the low-latency product
+    of csrc/fq_chain.cuh (Horner's and bucket-serial's) takes.  Every
+    chain's result is checked against host integers."""
     Fq = curve.fq
     c, y = 0x9E3779B9, 0x7F4A7C15
     xy = torch.from_numpy(np.array([c, y], dtype=np.uint32).view(np.int32)).to(curve.device)
@@ -444,15 +481,17 @@ def chain_latency(curve) -> tuple[float, dict]:
         raise AssertionError("imad_chain: wrong result")
     step_ms = _chain_step_ms(lambda k: cuda_g1.imad_chain(xy, k), 1 << 20)
     fxy = Fq.random((2,), 71)
-    out = cuda_g1.fq_mul_chain(Fq.spec, fxy, 5)
     x, y = (int(v) for v in Fq.array_to_ints(fxy))
-    if int(Fq.array_to_ints(out)) != x * pow(y, 5, Fq.p) % Fq.p:
-        raise AssertionError("fq_mul_chain: wrong product")
+    for probe in (cuda_g1.fq_mul_chain, cuda_g1.fq_mul_cc_chain):
+        if int(Fq.array_to_ints(probe(Fq.spec, fxy, 5))) != x * pow(y, 5, Fq.p) % Fq.p:
+            raise AssertionError(f"{probe.__name__}: wrong product")
     depth = cios_depth(Fq.spec.num_words)
     diag = {"imad_wide_latency_ns": step_ms * 1e6, "cios_depth": depth,
             "fq_product_chain_bound_us": depth * step_ms * 1e3,
             "fq_product_fmul_chain_us": _chain_step_ms(
-                lambda k: cuda_g1.fq_mul_chain(Fq.spec, fxy, k), 1 << 16) * 1e3}
+                lambda k: cuda_g1.fq_mul_chain(Fq.spec, fxy, k), 1 << 16) * 1e3,
+            "fq_product_cc_chain_us": _chain_step_ms(
+                lambda k: cuda_g1.fq_mul_cc_chain(Fq.spec, fxy, k), 1 << 16) * 1e3}
     return depth * step_ms, diag
 
 
@@ -567,6 +606,52 @@ def check_masked(curve, int_rate: float, lat_ms: float) -> dict:
     return rows
 
 
+def chain_grid(curve):
+    """[8, 5] window totals / buckets over random points (Z != 1), row 0
+    least significant: column 0 random; column 1 makes Horner at c = 4
+    double and then cancel (rows 7, 6, 5 = Q, 16Q, -512Q); column 2 makes
+    bucket-serial double and then cancel (rows 7, 6, 5 = P, P, -2P);
+    column 3 holds infinity in rows 1, 3 and 4; column 4 is all infinity."""
+    P = curve.double(rand_points_flat(curve, 40, 67))
+    row = lambda i: map_points(lambda a: a[i:i + 1], P)  # noqa: E731
+    q = row(8)
+    special = {(7, 1): q, (6, 1): curve.scalar_mul_int(q, [16]),
+               (5, 1): curve.neg(curve.scalar_mul_int(q, [512])),
+               (7, 2): row(9), (6, 2): row(9), (5, 2): curve.neg(curve.double(row(9))),
+               (1, 3): curve.infinity((1,)), (3, 3): curve.infinity((1,)),
+               (4, 3): curve.infinity((1,))}
+    cells = [special.get((k, m), curve.infinity((1,)) if m == 4 else row(5 * k + m))
+             for k in range(8) for m in range(5)]
+    return map_points(lambda *a: torch.cat(a).reshape(8, 5, -1), *cells)
+
+
+def check_chain(curve) -> dict:
+    """csrc/g1_chain.cu against the plain versions: ``fq_mul_cc`` against
+    Fq ``mul`` (``fmul``) on 2^16 random pairs and the edge values 0, 1,
+    p - 1, R mod p, (p - 1) / 2; Horner on ``chain_grid`` at c = 1 and 4;
+    bucket-serial on it with S = 1, 2, 3 (K - 1 not a multiple of S), 4
+    and 7 segments, at K = 2, and with S from ``bucket_segments``.  Raises
+    on any difference; returns the cases held."""
+    spec, Fq = curve.fq.spec, curve.fq
+    a, b = Fq.random((1 << 16,), 68), Fq.random((1 << 16,), 69)
+    edge = Fq.array_from_ints([0, 1, Fq.p - 1, Fq.spec.r % Fq.p, (Fq.p - 1) // 2])
+    a, b = torch.cat([a, edge.repeat_interleave(5, dim=0)]), torch.cat([b, edge.repeat(5, 1)])
+    _equal("fq_mul_cc", cuda_g1.fq_mul_cc(spec, a, b), cuda_fr.mul(spec, a, b))
+    grid = chain_grid(curve)
+    cases = ["fq_mul_cc"]
+    for c in (1, 4):
+        _equal(f"g1 horner c={c}", cuda_g1.horner(spec, grid, c),
+               cuda_g1.horner.plain(spec, grid, c))
+        cases.append(f"horner c={c}")
+    k2 = map_points(lambda a: a[:2], grid)
+    for bk, S in ((grid, 1), (grid, 2), (grid, 3), (grid, 4), (grid, 7), (grid, None), (k2, None)):
+        K = bk.x.shape[0]
+        _equal(f"g1 bucket_serial K={K} S={S}", cuda_g1.bucket_serial(spec, bk, S),
+               cuda_g1.bucket_serial.plain(spec, bk, S))
+        cases.append(f"bucket_serial K={K} S={S}")
+    return {"chain_kernels_held": cases}
+
+
 def time_recorded(calls, errs: dict, int_rate: float, lat_ms: float) -> dict:
     """Kernel and plain times of the first recorded accumulate, Horner and
     bucket-serial calls of the MSM paths, at the shapes the paths gave them;
@@ -598,7 +683,7 @@ def time_recorded(calls, errs: dict, int_rate: float, lat_ms: float) -> dict:
             K, Mb = args[1][0].shape[:2]
             bound = _g1_bound(Mb * 2 * (K - 2) * 16, K * Mb * 288, (K - 1) * ADD_DEPTH,
                               int_rate, lat_ms)
-            shape = (K, Mb)
+            shape = (K, Mb, cuda_g1.bucket_segments(K, Mb))
         t0 = time.perf_counter()
         kern.plain(*args)
         torch.cuda.synchronize()
@@ -877,13 +962,15 @@ def sampling_masked():
         ends.close(kept)
 
 
-def prove_phase(launches: dict, replayed: dict) -> dict:
+def prove_phase(launches: dict, replayed: dict, int_rate: float, lat_ms: float) -> dict:
     """The main path: ``dhyperplonk`` at n = 16, l = 8, leader mode, through
     the bench entry (setup, warm-up, three synchronised proves, one with
     synchronised spans), its digest and comm against the pins, then one
     prove counted on its own in each MSM configuration.  The non-dense
     prove's first and last ``add_masked`` step of every loop is replayed
-    through the plain version."""
+    through the plain version.  Then the ``SCZK_MXU=1`` proves, one dense
+    prove under ``torch.profiler`` and one whose G1 call shapes are kept
+    (``prove_shapes``)."""
     n, l = PROVE["n"], PROVE["l"]
     report, (pk, net, _) = bench_module.run(n, l, "cuda", repeat=3)
     _check_pin(f"prove_n{n}_l{l}", int(report["digest"], 16))
@@ -908,6 +995,7 @@ def prove_phase(launches: dict, replayed: dict) -> dict:
     del kept
     report.update(mxu_prove(pk, net, n, launches))
     report["profile"] = profile_prove(pk, net, n)
+    report["shapes"] = prove_shapes(pk, net, n, int_rate, lat_ms)
     del pk
     return report
 
@@ -942,6 +1030,54 @@ def mxu_prove(pk, net, n: int, launches: dict, repeat: int = 3) -> dict:
             "prove_mxu_launches": {k: v for k, v in launches["prove_mxu"].items() if v}}
 
 
+def _call_shape(name: str, args):
+    """What sizes one call: lanes of a point add, (W, C, c) of Horner,
+    (K, M, S) of bucket-serial."""
+    if name == "g1_add":
+        return torch.broadcast_shapes(args[1][0].shape, args[2][0].shape)[:-1].numel()
+    if name == "g1_horner":
+        return tuple(args[1][0].shape[:2]) + (args[2],)
+    K, M = args[1][0].shape[:2]
+    return (K, M, cuda_g1.bucket_segments(K, M))
+
+
+def prove_shapes(pk, net, n: int, int_rate: float, lat_ms: float) -> dict:
+    """One dense prove with the shape of every point ``add``, Horner and
+    bucket-serial call kept (the calls themselves are not), as histograms;
+    then ``add`` timed on random points (Z != 1) at its four most frequent
+    lane counts, beside its bound there: its device time, and the time
+    between CUDA events around one wrapper call, which at a few lanes is
+    the host's time for the call."""
+    calls = []
+
+    def keep(kept, entry):
+        kept.append((entry[0], _call_shape(entry[0], entry[1])))
+    g1_module.cuda_g1 = msm_module.cuda_g1 = _Recorder(
+        cuda_g1, "g1_", ("add", "horner", "bucket_serial"), calls, keep=keep)
+    try:
+        dhyperplonk(n, pk, net)
+        torch.cuda.synchronize()
+    finally:
+        g1_module.cuda_g1 = msm_module.cuda_g1 = cuda_g1
+    hist = {k: collections.Counter(s for name, s in calls if name == k)
+            for k in ("g1_add", "g1_horner", "g1_bucket_serial")}
+    curve, spec = pk.curve, pk.curve.fq.spec
+    add_rows = []
+    for m, count in hist["g1_add"].most_common(4):
+        p1 = curve.double(rand_points_flat(curve, m, 72))
+        p2 = curve.double(rand_points_flat(curve, m, 73))
+        bound = _g1_bound(m * 16, 9 * m * 96, ADD_DEPTH, int_rate, lat_ms)
+        run = lambda: cuda_g1.add(spec, p1, p2)  # noqa: E731
+        add_rows.append({"lanes": m, "launches": count,
+                         "device_ms": _device_ms(run, "point_op_kernel"),
+                         "event_ms": _ms(run), "bound_ms": bound[0],
+                         "bound_by": bound[1], "bound_kind": bound[2]})
+    return {"add_lanes_histogram": sorted(hist["g1_add"].items()),
+            "add_at_frequent_lanes": add_rows,
+            "horner_shapes": sorted(hist["g1_horner"].items()),
+            "bucket_serial_shapes": sorted(hist["g1_bucket_serial"].items())}
+
+
 def profile_prove(pk, net, n: int) -> dict:
     """One dense prove under ``torch.profiler`` (host and CUDA activity):
     the device time summed over every kernel and copy, its share of the
@@ -958,14 +1094,15 @@ def profile_prove(pk, net, n: int) -> dict:
         wall = time.perf_counter() - t0
     spans = {label.replace(" ", "_") for label, _ in timer.records()}
     events = [e for e in prof.key_averages() if e.key not in spans]
-    name = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
-            else "self_cuda_time_total")  # the name before torch 2.4
-    dev = lambda e: getattr(e, name)  # noqa: E731
-    kern = sorted(((e.key, dev(e) / 1e6, e.count) for e in events if dev(e) > 0),
-                  key=lambda t: -t[1])
+    kern = sorted(((e.key, _self_device_us(e) / 1e6, e.count) for e in events
+                   if _self_device_us(e) > 0), key=lambda t: -t[1])
     busy = sum(t for _, t, _ in kern)
+    of = lambda tag: [sum(t for k, t, _ in kern if tag in k),  # noqa: E731
+                      sum(c for k, _, c in kern if tag in k)]
     return {"profiled_wall_s": wall, "device_busy_s": busy,
             "busy_share": busy / wall if kern else None,
+            "horner_device_s_launches": of("horner_team_kernel"),
+            "bucket_serial_device_s_launches": of("bucket_segment_kernel"),
             "top_device_s": [[k, t, c] for k, t, c in kern[:12]]}
 
 
@@ -1060,7 +1197,7 @@ def main() -> int:
     curve = bls12_381_g1()
     lat_ms, chain_diag = chain_latency(curve)
     g1_rows, collision = check_g1(curve, int_rate, lat_ms)
-    print(json.dumps({**chain_diag, **collision}), flush=True)
+    print(json.dumps({**chain_diag, **collision, **check_chain(curve)}), flush=True)
 
     # 3. the sumcheck main path, with launch counts around one call, whose
     # kernel calls are then replayed through the plain versions
@@ -1126,7 +1263,22 @@ def main() -> int:
 
     # 5. the main path: the prove at n = 16, l = 8 in both MSM
     # configurations, and the (6, 1) prove
-    prove = prove_phase(launches, replayed)
+    prove = prove_phase(launches, replayed, int_rate, lat_ms)
+    dense = launches["prove"]
+    if (dense["g1_horner"], dense["g1_bucket_serial"]) != PROVE_CHAIN_LAUNCHES:
+        raise AssertionError(f"the prove launched Horner {dense['g1_horner']} and bucket-serial "
+                             f"{dense['g1_bucket_serial']} times, not {PROVE_CHAIN_LAUNCHES}")
+    print(json.dumps({"chain_summary": {
+        "fq_product_cc_chain_us": chain_diag["fq_product_cc_chain_us"],
+        "fq_product_fmul_chain_us": chain_diag["fq_product_fmul_chain_us"],
+        "fq_product_chain_bound_us": chain_diag["fq_product_chain_bound_us"],
+        "prove_median_s": prove["value"], "prove_runs_s": prove["runs"],
+        "profiled_device_busy_s": prove["profile"]["device_busy_s"],
+        "profiled_busy_share": prove["profile"]["busy_share"],
+        "horner_device_s_launches": prove["profile"]["horner_device_s_launches"],
+        "bucket_serial_device_s_launches": prove["profile"]["bucket_serial_device_s_launches"],
+        "launches_per_prove": {"g1_horner": dense["g1_horner"],
+                               "g1_bucket_serial": dense["g1_bucket_serial"]}}}), flush=True)
     prove["n6_l1_digests"] = small_prove()
     print(json.dumps({"prove": prove}), flush=True)
     print(json.dumps({"mxu": mxu_paths(F, launches)}), flush=True)

@@ -10,22 +10,16 @@
 //                        steps around it and the repair of flagged lanes
 //                        (primitives/msm.py _dense_bucket_sums);
 //   scalar_mul_kernel    _scalar_mul_kernel: one thread per lane walks
-//                        its MSB-first double-and-add ladder;
-//   horner_kernel        _horner_kernel: sum_w 2^(c w) T_w, one thread per
-//                        column;
-//   bucket_serial_kernel _bucket_serial_kernel: sum_{k>=1} k B_k by the
-//                        running suffix, one thread per (window, segment).
-// The TPU's VMEM tiling (lane padding, the Horner budget split, the
-// bucket-serial lane chunks, unroll and identity front-padding) is not
-// carried over; the recurrences and their add order are.
+//                        its MSB-first double-and-add ladder.
+// _horner_kernel and _bucket_serial_kernel are g1_chain.cu's.  The TPU's
+// VMEM tiling (lane padding, unroll) is not carried over; the
+// recurrences and their add order are.
 //
 // Bound: every kernel is a chain of dependent Fq products per thread
 // (588 32-bit multiplies each, fr.cuh).  The point ops and the
 // accumulate have enough lanes to be bound by integer-multiply
-// throughput; Horner (C lanes, W (c + 1) dependent point ops),
-// bucket-serial (2 (K - 2) dependent adds) and the scalar ladder are
-// bound by the latency of their chain when they have few lanes: the
-// dependent products times the depth of one CIOS product in dependent
+// throughput; the scalar ladder is bound by the latency of its chain
+// when it has few lanes: the dependent products times the depth of one CIOS product in dependent
 // multiply-adds times one multiply-add's latency (imad_chain_kernel).
 // One point is 288 bytes and each thread reads its own rows: in the
 // accumulate kernel lane t's entries are `steps` apart, so its key and
@@ -43,30 +37,6 @@ namespace {
 
 constexpr int kThreads = 64;  // few threads per block: spread lanes over the SMs
 constexpr long long kSentinel = 0xFFFFFFFFll;  // key of padding entries
-
-struct Coords {
-  const int32_t* x;
-  const int32_t* y;
-  const int32_t* z;
-};
-
-struct OutCoords {
-  int32_t* x;
-  int32_t* y;
-  int32_t* z;
-};
-
-__device__ __forceinline__ void load_point(const Coords& c, size_t i, Pt& p) {
-  load_limbs<NQ>(c.x + i * (2 * NQ), p.x);
-  load_limbs<NQ>(c.y + i * (2 * NQ), p.y);
-  load_limbs<NQ>(c.z + i * (2 * NQ), p.z);
-}
-
-__device__ __forceinline__ void store_point(const OutCoords& c, size_t i, const Pt& p) {
-  store_limbs<NQ>(c.x + i * (2 * NQ), p.x);
-  store_limbs<NQ>(c.y + i * (2 * NQ), p.y);
-  store_limbs<NQ>(c.z + i * (2 * NQ), p.z);
-}
 
 // OP: 0 add, 1 add_mixed, 2 double.
 template <int OP>
@@ -168,37 +138,6 @@ __global__ void __launch_bounds__(kThreads)
   store_point(out, i, acc);
 }
 
-// tot: [W, C] window totals, window 0 least significant.
-__global__ void __launch_bounds__(kThreads)
-    horner_kernel(Coords tot, unsigned W, unsigned C, int cbits, OutCoords out, G1Const c) {
-  const unsigned col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= C) return;
-  Pt acc, T;
-  set_infinity(acc, c);
-  for (int w = (int)W - 1; w >= 0; --w) {
-    for (int j = 0; j < cbits; ++j) g1_double(acc, acc, c);
-    load_point(tot, (size_t)w * C + col, T);
-    g1_add<false>(acc, acc, T, c);
-  }
-  store_point(out, col, acc);
-}
-
-// buckets: [K, M], bucket k ascending; out[m] = sum_{k>=1} k B_k.
-__global__ void __launch_bounds__(kThreads)
-    bucket_serial_kernel(Coords buckets, unsigned K, unsigned M, OutCoords out, G1Const c) {
-  const unsigned lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= M) return;
-  Pt acc, tot, B;
-  load_point(buckets, (size_t)(K - 1) * M + lane, acc);
-  tot = acc;
-  for (int k = (int)K - 2; k >= 1; --k) {
-    load_point(buckets, (size_t)k * M + lane, B);
-    g1_add<false>(acc, acc, B, c);
-    g1_add<false>(tot, tot, acc, c);
-  }
-  store_point(out, lane, tot);
-}
-
 // One thread runs n dependent 32x32->64 multiply-adds, c = lo(c) * y + c
 // mod 2^64 (one IMAD.WIDE.U32 each): the kernel's time over n is the
 // latency of one dependent step of a CIOS product on the card, the unit
@@ -224,17 +163,6 @@ __global__ void fq_mul_chain_kernel(const int32_t* a, int n, int32_t* out, Field
 }
 
 unsigned blocks(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
-
-Coords coords(const void* x, const void* y, const void* z) {
-  return {static_cast<const int32_t*>(x), static_cast<const int32_t*>(y),
-          static_cast<const int32_t*>(z)};
-}
-
-OutCoords out_coords(void* x, void* y, void* z) {
-  return {static_cast<int32_t*>(x), static_cast<int32_t*>(y), static_cast<int32_t*>(z)};
-}
-
-G1Const consts_of(const void* consts) { return g1_const(static_cast<const uint32_t*>(consts)); }
 
 }  // namespace
 
@@ -306,25 +234,6 @@ extern "C" int sczk_g1_scalar_mul(const void* px, const void* py, const void* pz
   return (int)cudaGetLastError();
 }
 
-// tot: [W, C]; out: [C]; c: doublings per window.
-extern "C" int sczk_g1_horner(const void* tx, const void* ty, const void* tz, int W, int C, int c,
-                              void* ox, void* oy, void* oz, const void* consts, void* stream) {
-  if (W <= 0 || C <= 0 || c <= 0) return (int)cudaErrorInvalidValue;
-  horner_kernel<<<blocks(C), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      coords(tx, ty, tz), (unsigned)W, (unsigned)C, c, out_coords(ox, oy, oz), consts_of(consts));
-  return (int)cudaGetLastError();
-}
-
-// buckets: [K, M] with K >= 2; out: [M].
-extern "C" int sczk_g1_bucket_serial(const void* bx, const void* by, const void* bz, int K, int M,
-                                     void* ox, void* oy, void* oz, const void* consts,
-                                     void* stream) {
-  if (K < 2 || M <= 0) return (int)cudaErrorInvalidValue;
-  bucket_serial_kernel<<<blocks(M), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      coords(bx, by, bz), (unsigned)K, (unsigned)M, out_coords(ox, oy, oz), consts_of(consts));
-  return (int)cudaGetLastError();
-}
-
 // a: int32 [2, 24] (x, y); out: int32 [24] = x y^n R^-n.
 extern "C" int sczk_fq_mul_chain(const void* a, int n, void* out, const void* consts,
                                  void* stream) {
@@ -343,8 +252,9 @@ extern "C" int sczk_imad_chain(const void* a, int n, void* out, void* stream) {
 }
 
 // Registers and local (spill) bytes per thread of kernel `which`:
-// 0 add, 1 add_mixed, 2 double, 3 accumulate, 4 scalar_mul, 5 horner,
-// 6 bucket_serial, 7 add_masked, 8 add_reset.  out: int32 [2].
+// 0 add, 1 add_mixed, 2 double, 3 accumulate, 4 scalar_mul,
+// 5 add_masked, 6 add_reset (Horner and bucket-serial: g1_chain.cu).
+// out: int32 [2].
 extern "C" int sczk_g1_attrs(int which, int* out) {
   const void* fns[] = {
       reinterpret_cast<const void*>(&point_op_kernel<0>),
@@ -352,8 +262,6 @@ extern "C" int sczk_g1_attrs(int which, int* out) {
       reinterpret_cast<const void*>(&point_op_kernel<2>),
       reinterpret_cast<const void*>(&accumulate_kernel),
       reinterpret_cast<const void*>(&scalar_mul_kernel),
-      reinterpret_cast<const void*>(&horner_kernel),
-      reinterpret_cast<const void*>(&bucket_serial_kernel),
       reinterpret_cast<const void*>(&masked_op_kernel<0>),
       reinterpret_cast<const void*>(&masked_op_kernel<1>),
   };

@@ -24,7 +24,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-SOURCES = ("fr", "sumcheck", "g1")
+SOURCES = ("fr", "sumcheck", "g1", "g1_chain")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

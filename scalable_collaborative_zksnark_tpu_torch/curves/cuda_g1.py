@@ -8,7 +8,11 @@ with the scan and repair around it in ``primitives/msm.py``
 (``accumulate``); ``_scalar_mul_kernel`` (``scalar_mul``);
 ``_horner_kernel`` (``horner``); ``_bucket_serial_kernel``
 (``bucket_serial``).  The kernels are ``csrc/g1.cu`` on the group law of
-``csrc/g1.cuh``; see those files for the design and what bounds it.
+``csrc/g1.cuh``, and, for Horner and bucket-serial, ``csrc/g1_chain.cu``
+on the same formulas with the low-latency product of
+``csrc/fq_chain.cuh``; see those files for the design and what bounds it.
+Bucket-serial runs a segmented schedule (``bucket_segments``), which its
+plain version follows step for step.
 
 A point is a tuple ``(x, y, z)`` of ``int32 [..., 24]`` Fq Montgomery
 limbs (Jacobian; z = 0 is infinity, written (0, 1, 0)).  A CPU tensor
@@ -47,14 +51,26 @@ _SIGNATURES = {
     "sczk_g1_masked_op": [_I] + [_VP] * 10 + [_I, _VP, _VP],
     "sczk_g1_accumulate": [_VP, _VP, _VP, _LL, _VP, _VP, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP],
     "sczk_g1_scalar_mul": [_VP, _VP, _VP, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP],
-    "sczk_g1_horner": [_VP, _VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP],
-    "sczk_g1_bucket_serial": [_VP, _VP, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP],
     "sczk_g1_attrs": [_I, _VP],
     "sczk_fq_mul_chain": [_VP, _I, _VP, _VP, _VP],
     "sczk_imad_chain": [_VP, _I, _VP, _VP],
 }
-ATTR_KERNELS = ("add", "add_mixed", "double", "accumulate", "scalar_mul", "horner",
-                "bucket_serial", "add_masked", "add_reset")
+_CHAIN_SIGNATURES = {
+    "sczk_g1_horner": [_VP, _VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP],
+    "sczk_g1_bucket_serial": [_VP, _VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP],
+    "sczk_fq_mul_cc": [_VP, _VP, _VP, _I, _VP, _VP],
+    "sczk_fq_mul_cc_chain": [_VP, _I, _VP, _VP, _VP],
+    "sczk_g1_chain_attrs": [_I, _VP],
+}
+# kernels of csrc/g1.cu and of csrc/g1_chain.cu, in their attrs entries' order
+ATTR_KERNELS = ("add", "add_mixed", "double", "accumulate", "scalar_mul", "add_masked",
+                "add_reset")
+CHAIN_ATTR_KERNELS = ("horner", "bucket_serial")
+
+SEGMENT_FILL_THREADS = 132 * 4 * 32
+"""Threads that put four warps on each of the H100's 132 SMs: bucket-serial
+cuts a lane's buckets into segments only while M * S stays within it."""
+MAX_SEGMENTS = 64  # a lane's segments share one block of csrc/g1_chain.cu
 
 
 # ---------------------------------------------------------------------------
@@ -230,17 +246,80 @@ def horner_plain(spec: FieldSpec, totals: tuple, c: int) -> tuple:
     return acc
 
 
-def bucket_serial_plain(spec: FieldSpec, buckets: tuple) -> tuple:
-    """sum_{k>=1} k*B_k over buckets [K, M] (k ascending) by the running
-    suffix: acc = B_{K-1}, total = acc; then for k = K-2 .. 1,
-    acc += B_k, total += acc."""
-    K = buckets[0].shape[0]
-    acc = tuple(a[K - 1] for a in buckets)
-    total = acc
-    for k in range(K - 2, 0, -1):
-        acc = add_plain(spec, acc, tuple(a[k] for a in buckets))[0]
+def bucket_segments(K: int, M: int) -> int:
+    """Segments S per lane of bucket-serial over buckets [K, M]: the power
+    of two that makes one lane's chain of point ops shortest (its segment's
+    running suffix, 2 (L - 1) adds for L = ceil((K - 1) / S), then the
+    combine: S - 1 adds of the V_s, 2 (S - 2) of the suffix over the R_s,
+    the double-and-add by L and one add), as long as M * S threads fit
+    ``SEGMENT_FILL_THREADS``; 1 (the plain running suffix) when no S > 1
+    shortens it.  The kernel and ``bucket_serial_plain`` both read it."""
+    def chain(S):
+        L = -(-(K - 1) // S)
+        if S == 1:
+            return 2 * (L - 1)
+        return 2 * (L - 1) + (S - 1) + 2 * (S - 2) + L.bit_length() + bin(L).count("1") - 1
+
+    best, S = 1, 2
+    while S <= min((K - 1) // 2, MAX_SEGMENTS) and M * S <= SEGMENT_FILL_THREADS:
+        if chain(S) < chain(best):
+            best = S
+        S *= 2
+    return best
+
+
+def _segments(K: int, M: int, segments: int | None) -> int:
+    """``segments``, or ``bucket_segments(K, M)`` when it is None; 1 to
+    ``MAX_SEGMENTS``."""
+    S = bucket_segments(K, M) if segments is None else segments
+    if not 1 <= S <= MAX_SEGMENTS:
+        raise ValueError(f"{S} segments per lane; bucket-serial takes 1 to {MAX_SEGMENTS}")
+    return S
+
+
+def bucket_serial_plain(spec: FieldSpec, buckets: tuple, segments: int | None = None) -> tuple:
+    """sum_{k>=1} k*B_k over buckets [K, M] (k ascending) on the kernel's
+    segmented schedule, step for step: S = ``segments`` (default
+    ``bucket_segments(K, M)``) segments of L = ceil((K - 1) / S) buckets;
+    segment s runs the running suffix over k = min((s+1)L, K-1) .. sL+1
+    from acc = total = infinity (acc += B_k, total += acc), giving R_s and
+    V_s = sum (k - sL) B_k; then sum_s V_s in order, the running suffix
+    over R_{S-1} .. R_1 (sum_s s R_s), its multiple by L (MSB-first
+    double-and-add) and one last add.  With S = 1 that is the running
+    suffix alone."""
+    K, M = buckets[0].shape[:2]
+    S = _segments(K, M, segments)
+    L = -(-(K - 1) // S)
+    dev = buckets[0].device
+    # buckets 1 .. K-1, padded above with infinity to S*L; the padding
+    # comes first in the descending walk, where acc and total are still
+    # infinity, and adding infinity to infinity leaves them as they were
+    body = tuple(a[1:] for a in buckets)
+    if S * L > K - 1:
+        body = tuple(torch.cat([a, f])
+                     for a, f in zip(body, infinity(spec, (S * L - (K - 1), M), dev)))
+    seg = tuple(a.reshape(S, L, M, a.shape[-1]) for a in body)
+    acc = total = infinity(spec, (S, M), dev)
+    for step in range(L - 1, -1, -1):
+        acc = add_plain(spec, acc, tuple(a[:, step] for a in seg))[0]
         total = add_plain(spec, total, acc)[0]
-    return total
+    R = [tuple(a[s] for a in acc) for s in range(S)]
+    V = [tuple(a[s] for a in total) for s in range(S)]
+    out = V[0]
+    if S == 1:
+        return out
+    for s in range(1, S):
+        out = add_plain(spec, out, V[s])[0]
+    suffix = weighted = R[S - 1]
+    for s in range(S - 2, 0, -1):
+        suffix = add_plain(spec, suffix, R[s])[0]
+        weighted = add_plain(spec, weighted, suffix)[0]
+    scaled = weighted
+    for bit in bin(L)[3:]:
+        scaled = double_plain(spec, scaled)
+        if bit == "1":
+            scaled = add_plain(spec, scaled, weighted)[0]
+    return add_plain(spec, out, scaled)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -282,6 +361,10 @@ def _stream(x: torch.Tensor):
 
 def _lib():
     return cuda_build.library("g1", _SIGNATURES)
+
+
+def _chain_lib():
+    return cuda_build.library("g1_chain", _CHAIN_SIGNATURES)
 
 
 def _launch_point_op(wrapper, spec: FieldSpec, p1: tuple, p2: tuple) -> tuple:
@@ -452,25 +535,56 @@ def horner(spec: FieldSpec, totals: tuple, c: int) -> tuple:
     W, C = totals[0].shape[0], totals[0].shape[1]
     tot = [_operand(a, a.shape) for a in totals]
     out = _empty(spec, (C,), tot[0].device)
-    err = _lib().sczk_g1_horner(*_ptrs(tot), W, C, c, *_ptrs(out), g1_consts(spec).ctypes.data,
-                                _stream(tot[0]))
+    err = _chain_lib().sczk_g1_horner(*_ptrs(tot), W, C, c, *_ptrs(out),
+                                      g1_consts(spec).ctypes.data, _stream(tot[0]))
     horner.launches += 1
     cuda_build.check(err, "g1 horner")
     return out
 
 
-def bucket_serial(spec: FieldSpec, buckets: tuple) -> tuple:
-    """sum_{k>=1} k*B_k over buckets [K, M] -> [M]: kernel on CUDA, plain on the CPU."""
+def bucket_serial(spec: FieldSpec, buckets: tuple, segments: int | None = None) -> tuple:
+    """sum_{k>=1} k*B_k over buckets [K, M] -> [M] on the segmented schedule
+    (``segments`` per lane, default ``bucket_segments(K, M)``): kernel on
+    CUDA, plain on the CPU."""
     if _on_cpu(*buckets):
-        return bucket_serial_plain(spec, buckets)
+        return bucket_serial_plain(spec, buckets, segments)
     _check(spec, *buckets)
     K, M = buckets[0].shape[0], buckets[0].shape[1]
+    S = _segments(K, M, segments)
     b = [_operand(a, a.shape) for a in buckets]
     out = _empty(spec, (M,), b[0].device)
-    err = _lib().sczk_g1_bucket_serial(*_ptrs(b), K, M, *_ptrs(out), g1_consts(spec).ctypes.data,
-                                       _stream(b[0]))
+    err = _chain_lib().sczk_g1_bucket_serial(*_ptrs(b), K, M, S, *_ptrs(out),
+                                             g1_consts(spec).ctypes.data, _stream(b[0]))
     bucket_serial.launches += 1
     cuda_build.check(err, "g1 bucket_serial")
+    return out
+
+
+def fq_mul_cc(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b * R^-1 over int32 [m, 24] Fq operands on the card by the
+    low-latency product of csrc/fq_chain.cuh that Horner and bucket-serial
+    run on (a probe, to hold it against ``cuda_fr.mul``'s fmul)."""
+    _check(spec, a, b)
+    if a.shape != b.shape or a.dim() != 2 or a.shape[-1] != spec.num_limbs:
+        raise ValueError(f"operands {tuple(a.shape)} and {tuple(b.shape)}, want [m, 24] each")
+    a, b = _operand(a, a.shape), _operand(b, b.shape)
+    out = torch.empty_like(a)
+    if a.shape[0]:
+        cuda_build.check(_chain_lib().sczk_fq_mul_cc(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                                     a.shape[0], g1_consts(spec).ctypes.data,
+                                                     _stream(a)), "fq_mul_cc")
+    return out
+
+
+def fq_mul_cc_chain(spec: FieldSpec, xy: torch.Tensor, n: int) -> torch.Tensor:
+    """x * y^n * R^-n by n dependent products of csrc/fq_chain.cuh in one
+    thread (``fq_mul_chain``'s probe for the low-latency product)."""
+    _check(spec, xy)
+    xy = _operand(xy, xy.shape)
+    out = torch.empty(spec.num_limbs, dtype=torch.int32, device=xy.device)
+    cuda_build.check(_chain_lib().sczk_fq_mul_cc_chain(xy.data_ptr(), n, out.data_ptr(),
+                                                       g1_consts(spec).ctypes.data, _stream(xy)),
+                     "fq_mul_cc chain")
     return out
 
 
@@ -504,8 +618,11 @@ def imad_chain(xy: torch.Tensor, n: int) -> torch.Tensor:
 def attributes(name: str) -> dict:
     """Registers and spill (local) bytes per thread of a kernel, from the card."""
     out = np.zeros(2, dtype=np.int32)
-    cuda_build.check(_lib().sczk_g1_attrs(ATTR_KERNELS.index(name), out.ctypes.data),
-                     f"g1 attributes of {name}")
+    if name in CHAIN_ATTR_KERNELS:
+        err = _chain_lib().sczk_g1_chain_attrs(CHAIN_ATTR_KERNELS.index(name), out.ctypes.data)
+    else:
+        err = _lib().sczk_g1_attrs(ATTR_KERNELS.index(name), out.ctypes.data)
+    cuda_build.check(err, f"g1 attributes of {name}")
     return {"registers": int(out[0]), "spill_bytes": int(out[1])}
 
 

@@ -49,6 +49,33 @@ def test_g1_kernels_match_plain_on_card(cuda):
 
 
 @pytest.mark.gpu
+def test_chain_kernels_match_plain_on_card(cuda):
+    """csrc/g1_chain.cu at the prove's shapes: bucket-serial at K = 33 on
+    192 and 1,677 lanes (4 segments) and Horner at W 32, C 3, c 8, bit for
+    bit against their plain versions, one launch each; the low-latency
+    product against Fq ``mul`` (fmul) on random values and on 0, 1, p - 1,
+    R mod p."""
+    C = bls12_381_g1(cuda)
+    spec, Fq = C.fq.spec, C.fq
+    for M in (192, 1677):
+        bk = map_points(lambda a: a.reshape(33, M, -1), chip_smoke.rand_points_flat(C, 33 * M, M))
+        before = cuda_g1.bucket_serial.launches
+        out = cuda_g1.bucket_serial(spec, bk)
+        assert cuda_g1.bucket_serial.launches == before + 1
+        assert all(torch.equal(a, b) for a, b in zip(out, cuda_g1.bucket_serial.plain(spec, bk)))
+    assert cuda_g1.bucket_segments(33, 1677) == 4
+    tot = map_points(lambda a: a.reshape(32, 3, -1), chip_smoke.rand_points_flat(C, 96, 7))
+    before = cuda_g1.horner.launches
+    out = cuda_g1.horner(spec, tot, 8)
+    assert cuda_g1.horner.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(out, cuda_g1.horner.plain(spec, tot, 8)))
+    edge = Fq.array_from_ints([0, 1, Fq.p - 1, Fq.spec.r % Fq.p])
+    a = torch.cat([Fq.random((4096,), 8), edge.repeat_interleave(4, dim=0)])
+    b = torch.cat([Fq.random((4096,), 9), edge.repeat(4, 1)])
+    assert torch.equal(cuda_g1.fq_mul_cc(spec, a, b), cuda_fr.mul(spec, a, b))
+
+
+@pytest.mark.gpu
 def test_msm_on_card_matches_cpu(cuda):
     """The dense MSM through the kernels and through the plain versions on
     the CPU give the same normalized points."""

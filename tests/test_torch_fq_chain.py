@@ -1,0 +1,109 @@
+"""The low-latency Fq product of ``csrc/fq_chain.cuh`` (Horner's and
+bucket-serial's) on the CPU.
+
+The product is CUDA C++ on PTX carry-flag instructions, which nothing here
+can run.  This test compiles the header's arithmetic with the host C++
+compiler, the PTX primitives replaced by a plain emulation of the same
+instructions (a carry flag that each ``.cc`` instruction sets and each
+``c``-suffixed one reads), and holds it against Python integers on edge
+and random values.  It checks the schedule of the even and odd
+accumulators and their carries, not the compiled PTX: ``chip_smoke.py``
+and ``tests/test_torch_card.py`` hold the kernel itself against ``fmul``
+on the card.  Skips where there is no ``g++``.
+"""
+
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from scalable_collaborative_zksnark_tpu_torch.fields.fr import get_field
+
+HEADER = (Path(__file__).resolve().parents[1] / "scalable_collaborative_zksnark_tpu_torch"
+          / "csrc" / "fq_chain.cuh")
+BEGIN, END = "// ---- carry-flag primitives", "// ---- end of primitives ----"
+
+SHIM = """
+#include <cstdint>
+#define __device__
+#define __forceinline__ inline
+template <int N> struct FieldConst { uint32_t p[N]; uint32_t n0; };
+"""
+
+# PTX semantics: mad.lo/hi.cc add the low/high word of a*b to c and set the
+# carry flag CF; madc adds CF in; add/sub(c).cc likewise (CF = borrow for sub).
+PRIMITIVES = """
+static uint32_t CF;
+static inline uint32_t mul_lo(uint32_t a, uint32_t b) { return a * b; }
+static inline uint32_t mul_hi(uint32_t a, uint32_t b) {
+  return (uint32_t)(((uint64_t)a * b) >> 32); }
+static inline uint32_t carry(uint64_t s) { CF = (uint32_t)(s >> 32); return (uint32_t)s; }
+typedef uint32_t u32;
+static inline u32 mad_lo_cc(u32 a, u32 b, u32 c) { return carry((uint64_t)(a * b) + c); }
+static inline u32 madc_lo_cc(u32 a, u32 b, u32 c) { return carry((uint64_t)(a * b) + c + CF); }
+static inline u32 madc_hi_cc(u32 a, u32 b, u32 c) { return carry((uint64_t)mul_hi(a, b) + c + CF); }
+static inline u32 madc_hi(u32 a, u32 b, u32 c) { return mul_hi(a, b) + c + CF; }
+static inline uint32_t add_cc(uint32_t a, uint32_t b) { return carry((uint64_t)a + b); }
+static inline uint32_t addc_cc(uint32_t a, uint32_t b) { return carry((uint64_t)a + b + CF); }
+static inline uint32_t addc(uint32_t a, uint32_t b) { return a + b + CF; }
+static inline uint32_t sub_cc(uint32_t a, uint32_t b) { CF = a < b; return a - b; }
+static inline uint32_t subc_cc(uint32_t a, uint32_t b) {
+  uint64_t s = (uint64_t)a - b - CF; CF = (uint32_t)(s >> 63); return (uint32_t)s; }
+static inline uint32_t subc(uint32_t a, uint32_t b) { return a - b - CF; }
+"""
+
+MAIN = """
+#include <cstdio>
+int main() {
+  FieldConst<12> f;
+  for (int j = 0; j < 12; ++j) if (scanf("%x", &f.p[j]) != 1) return 1;
+  if (scanf("%x", &f.n0) != 1) return 1;
+  uint32_t a[12], b[12], r[12];
+  for (;;) {
+    for (int j = 0; j < 12; ++j) if (scanf("%x", &a[j]) != 1) return 0;
+    for (int j = 0; j < 12; ++j) if (scanf("%x", &b[j]) != 1) return 1;
+    fq_mul_cc(r, a, b, f);
+    for (int j = 0; j < 12; ++j) printf("%x ", r[j]);
+    printf("\\n");
+  }
+}
+"""
+
+
+def _host_source() -> str:
+    src = HEADER.read_text()
+    head, rest = src.split(BEGIN, 1)
+    tail = rest.split(END, 1)[1]
+    return (SHIM + head.replace('#include "fr.cuh"', "") + PRIMITIVES + tail + MAIN)
+
+
+def test_fq_mul_cc_schedule_on_host(tmp_path):
+    """a b 2^-384 mod q, canonical, for every pair of edge values (0, 1,
+    q - 1, q - 2, R mod q, R^2 mod q, (q - 1) / 2) and for 3,000 random
+    pairs, 500 of them both just below q."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler (g++)")
+    src = tmp_path / "fq_chain_host.cpp"
+    src.write_text(_host_source())
+    exe = tmp_path / "fq_chain_host"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-o", str(exe), str(src)], check=True,
+                   capture_output=True)
+    spec = get_field("bls12_381_fq", device="cpu").spec
+    q, R = spec.modulus, 1 << 384
+    words = lambda v: [(v >> (32 * k)) & 0xFFFFFFFF for k in range(12)]  # noqa: E731
+    rng = np.random.RandomState(7)
+    rand = lambda: int.from_bytes(rng.bytes(48), "little") % q  # noqa: E731
+    edge = [0, 1, q - 1, q - 2, R % q, R * R % q, (q - 1) // 2]
+    pairs = [(x, y) for x in edge for y in edge] + [(rand(), rand()) for _ in range(2500)]
+    pairs += [(q - 1 - int(rng.randint(1 << 30)), q - 1 - int(rng.randint(1 << 30)))
+              for _ in range(500)]
+    text = " ".join(f"{w:x}" for w in words(q) + [spec.n0inv32]) + "\n"
+    text += "\n".join(" ".join(f"{w:x}" for w in words(x) + words(y)) for x, y in pairs)
+    out = subprocess.run([str(exe)], input=text, capture_output=True, text=True,
+                         check=True).stdout.splitlines()
+    r_inv = pow(R, -1, q)
+    got = [sum(int(w, 16) << (32 * k) for k, w in enumerate(line.split())) for line in out]
+    assert got == [x * y * r_inv % q for x, y in pairs]

@@ -10,6 +10,8 @@ scan the port's accumulate replaces).  Its ``scalar_mul``,
 other Jacobian representatives, so those are compared by affine value.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,7 @@ from scalable_collaborative_zksnark_tpu_torch import convert
 from scalable_collaborative_zksnark_tpu_torch.curves import cuda_g1
 from scalable_collaborative_zksnark_tpu_torch.curves.g1 import PointJ, bls12_381_g1
 from scalable_collaborative_zksnark_tpu_torch.pss.pss import PackedSharingParams
+from scalable_collaborative_zksnark_tpu_torch.scripts import chain_bench
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -201,9 +204,42 @@ def _host_sum(points_and_scalars):
     return acc
 
 
-def test_plain_horner_and_bucket_serial_vs_host(curves):
-    """The plain Horner (sum_w 2^(c w) T_w) and bucket-serial (sum_k k B_k)
-    against Python-int arithmetic, with infinities among the inputs."""
+def _running_suffix(spec, buckets):
+    """sum_{k>=1} k B_k by the running suffix alone, the schedule the
+    bucket-serial kernel ran before it was segmented: acc = B_{K-1},
+    total = acc; for k = K-2 .. 1: acc += B_k, total += acc."""
+    K = buckets[0].shape[0]
+    acc = tuple(a[K - 1] for a in buckets)
+    total = acc
+    for k in range(K - 2, 0, -1):
+        acc = cuda_g1.add_plain(spec, acc, tuple(a[k] for a in buckets))[0]
+        total = cuda_g1.add_plain(spec, total, acc)[0]
+    return total
+
+
+# (K, M, segments, edits): edits set bucket (k, m) of the host grid to
+# None (infinity) or to a copy (or the negated double) of another cell
+BUCKET_CASES = {
+    "running_suffix": (6, 2, 1, {}),
+    "segments": (17, 3, 4, {}),
+    "ragged_segments": (12, 2, 3, {}),
+    "k2": (2, 3, None, {}),
+    "empty_buckets": (9, 3, 2, {(2, 0): None, (5, 0): None, (8, 1): None,
+                                **{(k, 2): None for k in range(9)}}),
+    "equal_buckets": (9, 2, 2, {(8, 0): ("copy", 7, 0), (4, 1): ("copy", 3, 1),
+                                (2, 1): ("negdouble", 3, 1)}),
+    "default_segments": (33, 4, None, {}),
+}
+
+
+@pytest.mark.parametrize("case", list(BUCKET_CASES))
+def test_plain_horner_and_bucket_serial_vs_host(curves, case):
+    """The plain Horner (sum_w 2^(c w) T_w) and bucket-serial (sum_k k B_k,
+    on the segmented schedule) against Python-int arithmetic, with
+    infinities among the inputs; bucket shapes with one segment (then also
+    bit-equal to the running suffix), several, K - 1 not a multiple of S,
+    K = 2, empty buckets and an all-empty lane, and equal buckets, where
+    the suffix doubles (and then cancels)."""
     T, _ = curves
     spec = T.fq.spec
     host = _host_points(12, 11)
@@ -213,7 +249,48 @@ def test_plain_horner_and_bucket_serial_vs_host(curves):
     tot = PointJ(*(a.reshape(W, C, -1) for a in pts))
     got = T.to_affine_ints(PointJ(*cuda_g1.horner(spec, tot, c)))
     assert got == [_host_sum((host[w * C + j], 1 << (c * w)) for w in range(W)) for j in range(C)]
-    K, M = 6, 2
-    buckets = PointJ(*(a.reshape(K, M, -1) for a in pts))
-    got = T.to_affine_ints(PointJ(*cuda_g1.bucket_serial(spec, buckets)))
-    assert got == [_host_sum((host[k * M + j], k) for k in range(1, K)) for j in range(M)]
+    K, M, S, edits = BUCKET_CASES[case]
+    grid = _host_points(K * M, 13)
+    for (k, m), e in edits.items():
+        if e is None:
+            grid[k * M + m] = None
+        else:
+            src = grid[e[1] * M + e[2]]
+            grid[k * M + m] = src if e[0] == "copy" else hc.g1_neg(hc.g1_add(src, src))
+    buckets = PointJ(*(a.reshape(K, M, -1) for a in T.from_affine_ints(grid)))
+    out = cuda_g1.bucket_serial(spec, buckets, S)
+    assert T.to_affine_ints(PointJ(*out)) == [
+        _host_sum((grid[k * M + j], k) for k in range(1, K)) for j in range(M)]
+    if (S or cuda_g1.bucket_segments(K, M)) == 1:
+        for a, b in zip(out, _running_suffix(spec, buckets), strict=True):
+            assert torch.equal(a, b)
+
+
+def test_bucket_segments():
+    """One segment where segmenting cannot shorten a lane's chain or the
+    lanes already fill the card; a power of two up to 64 otherwise, with
+    M * S within the fill; 4 at the prove's open-chain shape (K 33,
+    1,677 lanes), where the chain is 25 point ops against 62."""
+    seg = cuda_g1.bucket_segments
+    assert seg(2, 5) == seg(3, 100) == 1
+    assert seg(33, cuda_g1.SEGMENT_FILL_THREADS) == 1
+    assert seg(33, 1677) == 4 and seg(129, 300) == 8
+    for K in (5, 9, 17, 33, 129, 2049):
+        for M in (1, 192, 1677, 5000):
+            S = seg(K, M)
+            assert S & (S - 1) == 0 and S <= cuda_g1.MAX_SEGMENTS
+            assert S == 1 or M * S <= cuda_g1.SEGMENT_FILL_THREADS
+
+
+def test_chain_bench_on_cpu(capsys):
+    """``scripts/chain_bench.py`` at tiny shapes through the plain versions:
+    one JSON object with a time per Horner shape and per bucket shape and
+    segment count, no product chain (a card-only probe) and no prove."""
+    chain_bench.main(["--device", "cpu", "--horner", "3,2,2;2,1,1", "--bucket", "5,3",
+                      "--segments", "1,2", "--reps", "1", "--no-prove"])
+    out = json.loads(capsys.readouterr().out)
+    assert out["card"] == "cpu" and set(out["horner_ms"]) == {"3,2,2", "2,1,1"}
+    row = out["bucket_serial_ms"]["5,3"]
+    assert set(row) == {"default", "default_segments", "S=1", "S=2"}
+    assert row["default_segments"] == cuda_g1.bucket_segments(5, 3)
+    assert out["fq_chain_us"] == {} and "prove_median_s" not in out

@@ -24,7 +24,8 @@ from scalable_collaborative_zksnark_tpu_torch.mpc.net import PartyNet
 from scalable_collaborative_zksnark_tpu_torch.primitives import cuda_sumcheck
 from scalable_collaborative_zksnark_tpu_torch.primitives import mxu_sumcheck
 from scalable_collaborative_zksnark_tpu_torch.primitives import sumcheck as sumcheck_module
-from scalable_collaborative_zksnark_tpu_torch.scripts import exp_fieldmul, microbench, mxu_micro
+from scalable_collaborative_zksnark_tpu_torch.scripts import (chain_bench, exp_fieldmul,
+                                                               microbench, mxu_micro)
 from scalable_collaborative_zksnark_tpu_torch.utils import timer
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -77,10 +78,11 @@ def test_entry_points_default_to_cuda(no_cuda):
         bench.main(["--n", "4", "--l", "1"])
     with pytest.raises(RuntimeError, match="cuda"):
         bench.run(4, 1)
-    for entry in (exp_fieldmul.main, mxu_micro.main, microbench.main, bench_micro.main):
+    for entry in (exp_fieldmul.main, mxu_micro.main, microbench.main, bench_micro.main,
+                  chain_bench.main):
         with pytest.raises(RuntimeError, match="cuda"):
             entry([])
-    for run in (exp_fieldmul.run, mxu_micro.run, microbench.run):
+    for run in (exp_fieldmul.run, mxu_micro.run, microbench.run, chain_bench.run):
         with pytest.raises(RuntimeError, match="cuda"):
             run()
     with pytest.raises(RuntimeError, match="cuda"):
@@ -255,7 +257,7 @@ def test_field_consts():
     g = cuda_g1.g1_consts(spec)
     assert len(g) == 2 * spec.num_words + 1 and list(g[: spec.num_words + 1]) == list(c)
     assert sum(int(w) << (32 * k) for k, w in enumerate(g[spec.num_words + 1:])) == spec.r
-    assert set(cuda_build.SOURCES) == {"fr", "sumcheck", "g1"}
+    assert set(cuda_build.SOURCES) == {"fr", "sumcheck", "g1", "g1_chain"}
 
 
 def test_timer_spans(capsys):
