@@ -12,7 +12,8 @@ Phases (any failure raises and exits non-zero):
    and tiled Fr products on 2^20 elements, also against Fr mul after the
    layout transform; the sumcheck fold phase; the G1 point ops, ``add_masked`` and ``add_reset`` on 2^16
    points and an edge set, the scalar ladder on 1,024 full scalars and 0,
-   1, r - 1, the accumulate on a forced x-collision) bit for bit against
+   1, r - 1, the accumulate on a forced x-collision, on a warp whose
+   teams diverge and on random keys over two staging chunks) bit for bit against
    its plain PyTorch version on the card, and time both (CUDA events,
    median of 10 or more for the kernels); print each kernel's registers
    and spill bytes, and the latency of one dependent multiply-add (a
@@ -47,7 +48,11 @@ Phases (any failure raises and exits non-zero):
    plain version; one more dense prove under ``torch.profiler`` (device
    time by kernel, Horner's and bucket-serial's, the device's busy share);
    one whose point-add, Horner and bucket-serial call shapes are kept
-   (histograms; ``add`` timed at its most frequent lane counts); the (6, 1) prove in both
+   (histograms; ``add`` held against its plain version at every lane count
+   it saw, with edge lanes at 3 and 8,192, and timed at the four most
+   frequent); the dense
+   prove must launch point add 854, the accumulate 15, Horner 15 and
+   bucket-serial 12 times; the (6, 1) prove in both
    configurations, pinned; the int8-engine configuration (``SCZK_MXU=1``):
    the gate identity against its pin, ``mxu_sumcheck.product_phase``
    against the fold-phase kernel on ``[6, 2^13]`` tables, the (16, 8)
@@ -220,8 +225,11 @@ FQ_MULS = 4 * 12 * 12 + 12  # 32-bit multiplies of one Fq CIOS product
 # products per op on the critical path of one thread (general or mixed
 # add: Z1Z1 -> U2 -> HH -> J -> Y3; double: B -> t -> ... -> Y3)
 ADD_DEPTH, DOUBLE_DEPTH = 5, 3
-# Horner and bucket-serial launches of one dense (16, 8) prove
-PROVE_CHAIN_LAUNCHES = (15, 12)
+# point add, accumulate, Horner and bucket-serial launches of one dense
+# (16, 8) prove
+PROVE_G1_LAUNCHES = {"g1_add": 854, "g1_accumulate": 15, "g1_horner": 15, "g1_bucket_serial": 12}
+# the names the profiler gives the kernels of point add and the accumulate
+ADD_KERNEL, ACCUMULATE_KERNEL = "add_team_kernel", "accumulate_team_kernel"
 
 
 def _smi(query: str) -> str:
@@ -529,6 +537,7 @@ def check_g1(curve, int_rate: float, lat_ms: float) -> dict:
         rows[f"g1_{op}"] = _g1_row(op, (M, spec.num_limbs), err,
                                    _ms(lambda: kern(spec, p1, rhs)),
                                    _ms(lambda: kern.plain(spec, p1, rhs), reps=3), bound)
+    rows["g1_add"]["device_ms"] = _device_ms(lambda: cuda_g1.add(spec, p1, p2), ADD_KERNEL)
     err = _equal("g1 double", cuda_g1.double(spec, p1), cuda_g1.double.plain(spec, p1))
     rows["g1_double"] = _g1_row("double", (M, spec.num_limbs), err,
                                 _ms(lambda: cuda_g1.double(spec, p1)),
@@ -556,19 +565,60 @@ def check_g1(curve, int_rate: float, lat_ms: float) -> dict:
                                     _ms(lambda: cuda_g1.scalar_mul(spec, pts, sc)), plain_ms,
                                     bound)
 
-    # accumulate on a forced x-collision: bucket keys 0 and 3 hold a point twice
-    bases = map_points(lambda a: a[:8], curve.normalize(P))
-    dev = curve.device
-    keys = torch.tensor([0, 0, 0, 1, 1, 2, 3, 3, 3, 3], dtype=torch.int64, device=dev)
-    pid = torch.tensor([0, 0, 1, 2, 3, 4, 5, 5, 6, 7], dtype=torch.int64, device=dev)
-    neg = torch.tensor([0, 0, 1, 0, 1, 0, 0, 0, 0, 1], dtype=torch.bool, device=dev)
-    out = cuda_g1.accumulate(spec, keys, pid, neg, bases, 4, 3)
-    _equal("g1 accumulate (collision)", out, cuda_g1.accumulate.plain(spec, keys, pid, neg, bases,
-                                                                     4, 3))
-    if out[1] <= 0:
-        raise AssertionError("forced x-collision: no lane repaired")
+    # the accumulate on a forced x-collision, a warp whose teams diverge and
+    # random keys over two staging chunks (each case doubles somewhere)
+    repaired = {}
+    for name, args in accumulate_cases(curve):
+        out = cuda_g1.accumulate(spec, *args)
+        _equal(f"g1 accumulate ({name})", out, cuda_g1.accumulate.plain(spec, *args))
+        if out[1] <= 0:
+            raise AssertionError(f"accumulate ({name}): no lane repaired")
+        repaired[name] = out[1]
     rows.update(check_masked(curve, int_rate, lat_ms))
-    return rows, {"collision_repaired": out[1]}
+    return rows, {"accumulate_repaired": repaired}
+
+
+def accumulate_cases(curve) -> list:
+    """(name, (keys, pid, neg, bases, T, steps)) for the accumulate, each
+    with at least one doubling:
+
+    * ``collision``: 4 lanes of 3 steps, buckets 0 and 3 hold a point twice;
+    * ``diverging_warp``: 8 lanes, whose teams share one warp, of 6 steps,
+      where the teams take different branches at the same step: at step 1
+      three add, two double, two cancel and one resets; lane 6 adds to the
+      infinity a cancel left; lane 7 runs into padding at step 2; 4
+      doublings in all;
+    * ``random_two_chunks``: 72 lanes (a full block of 64 lanes and a
+      partial one) of 70 steps (past one 64-step staging chunk), keys
+      sorted from 300 buckets, bases and signs at random, the last 13
+      entries padding."""
+    dev = curve.device
+    P = curve.double(rand_points_flat(curve, 16, 61))
+    bases = map_points(lambda a: a.contiguous(), curve.normalize(P))
+    t = lambda v, dt=torch.int64: torch.tensor(v, dtype=dt, device=dev)  # noqa: E731
+    cases = [("collision", (t([0, 0, 0, 1, 1, 2, 3, 3, 3, 3]), t([0, 0, 1, 2, 3, 4, 5, 5, 6, 7]),
+                            t([0, 0, 1, 0, 1, 0, 0, 0, 0, 1], torch.bool), bases, 4, 3))]
+    lanes = [  # (keys, pid, neg) of each lane's 6 steps
+        ([0, 0, 0, 0, 1, 1], [0, 1, 2, 3, 4, 5], [0, 1, 0, 0, 0, 1]),  # adds, a reset
+        ([1, 1, 2, 2, 2, 3], [6, 6, 6, 7, 0, 1], [0, 0, 0, 0, 0, 0]),  # doubles at step 1
+        ([3, 3, 4, 4, 5, 5], [2, 2, 3, 3, 4, 5], [0, 1, 0, 0, 0, 0]),  # cancel, then doubles
+        ([6, 7, 8, 9, 10, 11], [8, 9, 10, 11, 12, 13], [0, 1, 0, 1, 0, 1]),  # resets only
+        ([12] * 6, [0, 1, 2, 3, 4, 5], [1, 0, 1, 0, 1, 0]),  # adds only
+        ([13, 13, 13, 14, 14, 14], [7, 7, 7, 14, 15, 14], [0, 0, 0, 0, 1, 0]),  # double, add
+        ([15, 15, 16, 16, 16, 16], [1, 1, 5, 5, 5, 5], [0, 1, 0, 1, 0, 0]),  # cancels, double
+        ([17, 17], [3, 4], [0, 0]),  # then padding
+    ]
+    cases.append(("diverging_warp", (t(sum((k for k, _, _ in lanes), [])),
+                                     t(sum((p for _, p, _ in lanes), [])),
+                                     t(sum((n for _, _, n in lanes), []), torch.bool),
+                                     bases, 8, 6)))
+    rng = np.random.RandomState(62)
+    T, steps = 72, 70
+    E = T * steps - 13
+    cases.append(("random_two_chunks", (t(np.sort(rng.randint(0, 300, E))),
+                                        t(rng.randint(0, 16, E)),
+                                        t(rng.randint(0, 2, E), torch.bool), bases, T, steps)))
+    return cases
 
 
 def masked_inputs(curve, m: int):
@@ -689,6 +739,8 @@ def time_recorded(calls, errs: dict, int_rate: float, lat_ms: float) -> dict:
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         rows[key] = _g1_row(name, shape, errs[key], _ms(lambda: kern(*args)), plain_ms, bound)
+        if name == "accumulate":  # the wrapper also waits for the repair count
+            rows[key]["device_ms"] = _device_ms(lambda: kern(*args), ACCUMULATE_KERNEL)
     return rows
 
 
@@ -1041,13 +1093,38 @@ def _call_shape(name: str, args):
     return (K, M, cuda_g1.bucket_segments(K, M))
 
 
+def check_add_lanes(curve, lanes) -> list:
+    """Point ``add`` against its plain version at each lane count of
+    ``lanes`` on random points (Z != 1), and with the six edge lanes of
+    ``_edge_points`` at 3 lanes (two calls) and at 8,192 (the last six of
+    8,192); returns the cases held."""
+    spec = curve.fq.spec
+    cases = []
+    for m in sorted(set(lanes)):
+        p1 = curve.double(rand_points_flat(curve, m, 72))
+        p2 = curve.double(rand_points_flat(curve, m, 73))
+        _equal(f"g1 add at {m} lanes", cuda_g1.add(spec, p1, p2), cuda_g1.add.plain(spec, p1, p2))
+        cases.append(m)
+    P = curve.double(rand_points_flat(curve, 8186, 74))
+    Q = curve.double(rand_points_flat(curve, 8186, 75))
+    p1, p2 = _edge_points(curve, P, Q)
+    for lo, hi in ((8186, 8189), (8189, 8192), (0, 8192)):
+        a, b = (map_points(lambda x: x[lo:hi], pt) for pt in (p1, p2))
+        _equal(f"g1 add at {hi - lo} lanes with edge lanes", cuda_g1.add(spec, a, b),
+               cuda_g1.add.plain(spec, a, b))
+        cases.append(f"{hi - lo} with edge lanes")
+    return cases
+
+
 def prove_shapes(pk, net, n: int, int_rate: float, lat_ms: float) -> dict:
     """One dense prove with the shape of every point ``add``, Horner and
     bucket-serial call kept (the calls themselves are not), as histograms;
-    then ``add`` timed on random points (Z != 1) at its four most frequent
-    lane counts, beside its bound there: its device time, and the time
-    between CUDA events around one wrapper call, which at a few lanes is
-    the host's time for the call."""
+    then ``add`` held against its plain version at every lane count it saw
+    (``check_add_lanes``) and timed on random points (Z != 1) at its four
+    most frequent lane counts, beside its bound there: its device time (or
+    "not measured" where the profiler saw no launch), and the time between
+    CUDA events around one wrapper call, which at a few lanes is the host's
+    time for the call."""
     calls = []
 
     def keep(kept, entry):
@@ -1062,18 +1139,20 @@ def prove_shapes(pk, net, n: int, int_rate: float, lat_ms: float) -> dict:
     hist = {k: collections.Counter(s for name, s in calls if name == k)
             for k in ("g1_add", "g1_horner", "g1_bucket_serial")}
     curve, spec = pk.curve, pk.curve.fq.spec
+    held = check_add_lanes(curve, hist["g1_add"])
     add_rows = []
     for m, count in hist["g1_add"].most_common(4):
         p1 = curve.double(rand_points_flat(curve, m, 72))
         p2 = curve.double(rand_points_flat(curve, m, 73))
         bound = _g1_bound(m * 16, 9 * m * 96, ADD_DEPTH, int_rate, lat_ms)
         run = lambda: cuda_g1.add(spec, p1, p2)  # noqa: E731
+        device = _device_ms(run, ADD_KERNEL)
         add_rows.append({"lanes": m, "launches": count,
-                         "device_ms": _device_ms(run, "point_op_kernel"),
+                         "device_ms": "not measured" if device is None else device,
                          "event_ms": _ms(run), "bound_ms": bound[0],
                          "bound_by": bound[1], "bound_kind": bound[2]})
     return {"add_lanes_histogram": sorted(hist["g1_add"].items()),
-            "add_at_frequent_lanes": add_rows,
+            "add_held_at_lanes": held, "add_at_frequent_lanes": add_rows,
             "horner_shapes": sorted(hist["g1_horner"].items()),
             "bucket_serial_shapes": sorted(hist["g1_bucket_serial"].items())}
 
@@ -1101,6 +1180,8 @@ def profile_prove(pk, net, n: int) -> dict:
                       sum(c for k, _, c in kern if tag in k)]
     return {"profiled_wall_s": wall, "device_busy_s": busy,
             "busy_share": busy / wall if kern else None,
+            "add_device_s_launches": of(ADD_KERNEL),
+            "accumulate_device_s_launches": of(ACCUMULATE_KERNEL),
             "horner_device_s_launches": of("horner_team_kernel"),
             "bucket_serial_device_s_launches": of("bucket_segment_kernel"),
             "top_device_s": [[k, t, c] for k, t, c in kern[:12]]}
@@ -1264,10 +1345,9 @@ def main() -> int:
     # 5. the main path: the prove at n = 16, l = 8 in both MSM
     # configurations, and the (6, 1) prove
     prove = prove_phase(launches, replayed, int_rate, lat_ms)
-    dense = launches["prove"]
-    if (dense["g1_horner"], dense["g1_bucket_serial"]) != PROVE_CHAIN_LAUNCHES:
-        raise AssertionError(f"the prove launched Horner {dense['g1_horner']} and bucket-serial "
-                             f"{dense['g1_bucket_serial']} times, not {PROVE_CHAIN_LAUNCHES}")
+    dense = {k: launches["prove"][k] for k in PROVE_G1_LAUNCHES}
+    if dense != PROVE_G1_LAUNCHES:
+        raise AssertionError(f"the prove launched {dense}, not {PROVE_G1_LAUNCHES}")
     print(json.dumps({"chain_summary": {
         "fq_product_cc_chain_us": chain_diag["fq_product_cc_chain_us"],
         "fq_product_fmul_chain_us": chain_diag["fq_product_fmul_chain_us"],
@@ -1275,10 +1355,9 @@ def main() -> int:
         "prove_median_s": prove["value"], "prove_runs_s": prove["runs"],
         "profiled_device_busy_s": prove["profile"]["device_busy_s"],
         "profiled_busy_share": prove["profile"]["busy_share"],
-        "horner_device_s_launches": prove["profile"]["horner_device_s_launches"],
-        "bucket_serial_device_s_launches": prove["profile"]["bucket_serial_device_s_launches"],
-        "launches_per_prove": {"g1_horner": dense["g1_horner"],
-                               "g1_bucket_serial": dense["g1_bucket_serial"]}}}), flush=True)
+        **{f"{k}_device_s_launches": prove["profile"][f"{k}_device_s_launches"]
+           for k in ("add", "accumulate", "horner", "bucket_serial")},
+        "launches_per_prove": dense}}), flush=True)
     prove["n6_l1_digests"] = small_prove()
     print(json.dumps({"prove": prove}), flush=True)
     print(json.dumps({"mxu": mxu_paths(F, launches)}), flush=True)
@@ -1348,6 +1427,8 @@ def main() -> int:
         }
         if "bound_kind" in r:
             row["bound_kind"] = r["bound_kind"]
+        if "device_ms" in r:  # the kernel's own time where events also hold the host's
+            row["device_ms"] = r["device_ms"]
         if name in OFF_PATH:
             row["note"] = OFF_PATH[name]
         kernels.append(row)

@@ -1,44 +1,95 @@
-// G1 point kernels for Hopper (sm_90a), on the group law of g1.cuh.
+// G1 point kernels for Hopper (sm_90a), on the group law of g1.cuh and,
+// for the general add and the accumulate, its team form in g1_team.cuh.
 //
 // Replaces curves/pallas_g1.py:
-//   point_op_kernel      _add_kernel (add, add_mixed) and _double_kernel
-//                        (_point_call): one thread per point;
+//   add_team_kernel      _add_kernel, op add (_point_call): a team of
+//                        kAddTeam lanes per point;
+//   point_op_kernel      _add_kernel, op add_mixed, and _double_kernel:
+//                        one thread per point (neither is launched on the
+//                        leader-mode prove, so they stay one-thread
+//                        kernels on fmul);
 //   masked_op_kernel     _add_masked_kernel and _add_reset_kernel (the same
 //                        _point_call site): a mixed add under a per-lane
 //                        mask, one thread per point;
-//   accumulate_kernel    _add_reset_lazy_kernel with the lax.scan over
+//   accumulate_team_kernel _add_reset_lazy_kernel with the lax.scan over
 //                        steps around it and the repair of flagged lanes
-//                        (primitives/msm.py _dense_bucket_sums);
+//                        (primitives/msm.py _dense_bucket_sums): a team of
+//                        kScanTeam lanes per scan lane;
 //   scalar_mul_kernel    _scalar_mul_kernel: one thread per lane walks
 //                        its MSB-first double-and-add ladder.
 // _horner_kernel and _bucket_serial_kernel are g1_chain.cu's.  The TPU's
 // VMEM tiling (lane padding, unroll) is not carried over; the
 // recurrences and their add order are.
 //
-// Bound: every kernel is a chain of dependent Fq products per thread
-// (588 32-bit multiplies each, fr.cuh).  The point ops and the
-// accumulate have enough lanes to be bound by integer-multiply
-// throughput; the scalar ladder is bound by the latency of its chain
-// when it has few lanes: the dependent products times the depth of one CIOS product in dependent
-// multiply-adds times one multiply-add's latency (imad_chain_kernel).
-// One point is 288 bytes and each thread reads its own rows: in the
-// accumulate kernel lane t's entries are `steps` apart, so its key and
-// index loads do not coalesce, and its base loads are gathers (the base
-// table is small enough to stay in L2).  That is accepted for now;
-// writing only the bucket ends, coalescing the entry loads and fusing
-// the cross-lane combine are later work.
+// What bounds them on this card.  Every kernel is a chain of dependent
+// Fq products per thread (588 32-bit multiplies each).  With one thread
+// a point on fmul (2.1 us a product in a one-thread chain) the general
+// add took about 0.05 ms at every lane count of the prove up to 8,192
+// (16 dependent products), and the accumulate's 8,192 lanes, about two
+// warps an SM, each walked `steps` mixed adds of 11 dependent products:
+// both 10 to 35 times their bound, held by the latency of one thread's
+// chain, not by the card's multiply rate.  The scalar ladder is bound by
+// the latency of its chain when it has few lanes: the dependent products
+// times the depth of one CIOS product in dependent multiply-adds times one
+// multiply-add's latency (imad_chain_kernel).
+//
+// What the team kernels do about it.  A team of lanes runs one point op
+// by dependency levels on fq_mul_cc (g1_team.cuh), about 0.9 us a product
+// instead of 2.1, a level of products in one product's latency.
+// * add_team_kernel: kAddTeam = 4 lanes a point, so the general add takes
+//   5 product latencies (16 products in levels of at most 4); 836 of the
+//   prove's 854 adds are on 1 to 8,192 points, where that latency is the
+//   time.  32 teams a block, neighbouring teams on
+//   neighbouring points.  Every lane of a team loads both whole points
+//   (the team's lanes read the same addresses, which the warp serves with
+//   one request) and lanes 0, 1, 2 store x, y, z.  At 65,542 points a
+//   2-lane team was faster in a probe on an H100 (fewer products repeated
+//   on idle lanes), but the prove has only 4 adds that wide, so there is
+//   one kernel.  160 registers, no spill.
+// * accumulate_team_kernel: kScanTeam = 2 lanes a scan lane.  The mixed
+//   add's levels are 2, 2, 2, 3 and 2 products wide, so a 2-lane team runs
+//   it in 6 rounds where a 4-lane team runs 5 with its third and fourth
+//   lanes repeating products in four of them; in a probe on an H100 the
+//   2-lane team was the faster at the prove's calls.  Lane t walks entries
+//   [t steps, (t + 1) steps) of the key-sorted list, so the entries of one
+//   step lie `steps` apart across lanes and their loads do not coalesce:
+//   each block (64 scan lanes) first stages its lanes' entries,
+//   kStageSteps steps at a time, into shared memory as one word each (pid,
+//   neg, "same key as the step before", "past E"), the block's threads
+//   reading keys, pid and neg contiguously.  Then each team walks its
+//   steps: the base gather is one request a team, as in add_team_kernel;
+//   a reset copies the point; an add is team_add<true>; an x-collision
+//   doubles in the team and counts in `repaired`; the team's lanes store
+//   the step's coordinates.  The teams of one warp take resets, adds,
+//   padding and doublings apart from each other, which their own shuffle
+//   masks allow.  Gathering each base a step ahead, to overlap it with
+//   the add, was slower on an H100.  144 registers, no spill.
+// The output of each is bit-equal to the one-thread form's and to the
+// plain versions (curves/cuda_g1.py).  Writing only the bucket ends and
+// fusing the cross-lane scan of the accumulate are later work.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "g1.cuh"
+#include "g1_team.cuh"
 
 namespace {
 
-constexpr int kThreads = 64;  // few threads per block: spread lanes over the SMs
+constexpr int kThreads = 64;  // one-thread kernels: few threads per block spread lanes over the SMs
 constexpr long long kSentinel = 0xFFFFFFFFll;  // key of padding entries
+constexpr int kAddTeam = 4;            // lanes a point of add_team_kernel
+constexpr int kScanTeam = 2;           // lanes a scan lane of accumulate_team_kernel
+constexpr int kTeamThreads = 128;      // threads a block of either
+constexpr unsigned kScanLanes = kTeamThreads / kScanTeam;
+constexpr unsigned kStageSteps = 64;             // accumulate steps staged at a time
+constexpr unsigned kStagePitch = kStageSteps + 1;  // odd: a warp's teams read different banks
+// a staged accumulate entry: pid in the low bits, then flags
+constexpr uint32_t kEntryValid = 1u << 31;  // e < E (else padding: infinity)
+constexpr uint32_t kEntrySame = 1u << 30;   // key == the previous step's key
+constexpr uint32_t kEntryNeg = 1u << 29;    // negate the base's y
+constexpr uint32_t kEntryPid = kEntryNeg - 1u;
 
-// OP: 0 add, 1 add_mixed, 2 double.
+// OP: 1 add_mixed, 2 double (the general add is add_team_kernel).
 template <int OP>
 __global__ void __launch_bounds__(kThreads)
     point_op_kernel(Coords a, Coords b, OutCoords out, unsigned m, G1Const c) {
@@ -51,9 +102,22 @@ __global__ void __launch_bounds__(kThreads)
   } else {
     Pt q;
     load_point(b, i, q);
-    g1_add<OP == 1>(r, p, q, c);
+    g1_add<true>(r, p, q, c);
   }
   store_point(out, i, r);
+}
+
+// out[i] = a[i] + b[i], one team of kAddTeam lanes per point.
+__global__ void __launch_bounds__(kTeamThreads)
+    add_team_kernel(Coords a, Coords b, OutCoords out, unsigned m, G1Const c) {
+  const Team<kAddTeam> tm = Team<kAddTeam>::here();
+  const unsigned i = (blockIdx.x * blockDim.x + threadIdx.x) / kAddTeam;
+  if (i >= m) return;  // the whole team
+  Pt p, q, r;
+  load_point(a, i, p);
+  load_point(b, i, q);
+  team_add<false>(r, p, q, c, tm);
+  team_store(out, i, r, tm);
 }
 
 // OP: 0 add_masked (out = mask ? a + b : a, the bucket accumulate step of
@@ -78,44 +142,68 @@ __global__ void __launch_bounds__(kThreads)
   store_point(out, i, p);
 }
 
+// Entry e of the list as the accumulate stages it; `first` is set at a
+// lane's first step, where the previous key is kSentinel.
+__device__ __forceinline__ uint32_t entry_word(const int64_t* __restrict__ keys,
+                                               const int64_t* __restrict__ pid,
+                                               const uint8_t* __restrict__ neg, long long E,
+                                               long long e, bool first) {
+  const long long k = e < E ? keys[e] : kSentinel;
+  const long long prev = first ? kSentinel : (e - 1 < E ? keys[e - 1] : kSentinel);
+  uint32_t w = k == prev ? kEntrySame : 0u;
+  if (e < E) w |= kEntryValid | (neg[e] ? kEntryNeg : 0u) | (uint32_t)pid[e];
+  return w;
+}
+
 // Lane t walks entries [t steps, (t + 1) steps) of the key-sorted list:
 // acc = (key == previous key) ? acc + P : P, with P = bases[pid], negated
 // where neg is set; scanned[s, t] = acc after step s.  Entries past E are
 // padding: key kSentinel, P = infinity.  The x-collision case doubles in
-// the thread; `repaired` counts those steps.
-__global__ void __launch_bounds__(kThreads)
-    accumulate_kernel(const int64_t* __restrict__ keys, const int64_t* __restrict__ pid,
-                      const uint8_t* __restrict__ neg, long long E, Coords bases, unsigned T,
-                      unsigned steps, OutCoords scanned, int* repaired, G1Const c) {
-  const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T) return;
+// the team; `repaired` counts those steps.  One team of kScanTeam lanes
+// per scan lane, kScanLanes lanes a block.
+__global__ void __launch_bounds__(kTeamThreads)
+    accumulate_team_kernel(const int64_t* __restrict__ keys, const int64_t* __restrict__ pid,
+                           const uint8_t* __restrict__ neg, long long E, Coords bases,
+                           unsigned T, unsigned steps, OutCoords scanned, int* repaired,
+                           G1Const c) {
+  __shared__ uint32_t staged[kScanLanes * kStagePitch];
+  const Team<kScanTeam> tm = Team<kScanTeam>::here();
+  const unsigned lane0 = blockIdx.x * kScanLanes;
+  const unsigned lanes = min(kScanLanes, T - lane0);
+  const unsigned tl = threadIdx.x / kScanTeam, t = lane0 + tl;
   uint32_t zero[NQ];
 #pragma unroll
   for (int j = 0; j < NQ; ++j) zero[j] = 0u;
   Pt acc, p;
   set_infinity(acc, c);
-  long long prev = kSentinel;
   int rep = 0;
-  for (unsigned s = 0; s < steps; ++s) {
-    const long long e = (long long)t * steps + s;
-    long long k;
-    if (e < E) {
-      k = keys[e];
-      load_point(bases, (size_t)pid[e], p);
-      if (neg[e]) fsub<NQ>(p.y, zero, p.y, c.f);
-    } else {
-      k = kSentinel;
-      set_infinity(p, c);
+  for (unsigned s0 = 0; s0 < steps; s0 += kStageSteps) {
+    const unsigned n = min(kStageSteps, steps - s0);
+    __syncthreads();  // every team is done with the last chunk
+    for (unsigned j = threadIdx.x; j < lanes * n; j += blockDim.x) {
+      const unsigned l = j / n, s = j % n;
+      staged[l * kStagePitch + s] =
+          entry_word(keys, pid, neg, E, (long long)(lane0 + l) * steps + s0 + s, s0 + s == 0);
     }
-    if (k == prev) {
-      rep += g1_add<true>(acc, acc, p, c);
-    } else {
-      acc = p;
+    __syncthreads();
+    if (tl >= lanes) continue;
+    for (unsigned s = 0; s < n; ++s) {
+      const uint32_t w = staged[tl * kStagePitch + s];
+      if (w & kEntryValid) {
+        load_point(bases, w & kEntryPid, p);
+        if (w & kEntryNeg) fsub<NQ>(p.y, zero, p.y, c.f);
+      } else {
+        set_infinity(p, c);
+      }
+      if (w & kEntrySame) {
+        rep += team_add<true>(acc, acc, p, c, tm);
+      } else {
+        acc = p;
+      }
+      team_store(scanned, (size_t)(s0 + s) * T + t, acc, tm);
     }
-    prev = k;
-    store_point(scanned, (size_t)s * T + t, acc);
   }
-  if (rep) atomicAdd(repaired, rep);
+  if (tm.lane == 0 && rep) atomicAdd(repaired, rep);
 }
 
 // scalars: n_limbs 16-bit limbs per lane, standard form, least significant first.
@@ -164,6 +252,10 @@ __global__ void fq_mul_chain_kernel(const int32_t* a, int n, int32_t* out, Field
 
 unsigned blocks(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
+unsigned team_blocks(long long teams) {
+  return (unsigned)((teams * kAddTeam + kTeamThreads - 1) / kTeamThreads);
+}
+
 }  // namespace
 
 // Every coordinate is int32 [n, 24] (16-bit limbs, Montgomery form),
@@ -180,7 +272,7 @@ extern "C" int sczk_g1_point_op(int op, const void* ax, const void* ay, const vo
   const G1Const c = consts_of(consts);
   auto s = static_cast<cudaStream_t>(stream);
   if (op == 0) {
-    point_op_kernel<0><<<blocks(m), kThreads, 0, s>>>(a, b, o, (unsigned)m, c);
+    add_team_kernel<<<team_blocks(m), kTeamThreads, 0, s>>>(a, b, o, (unsigned)m, c);
   } else if (op == 1) {
     point_op_kernel<1><<<blocks(m), kThreads, 0, s>>>(a, b, o, (unsigned)m, c);
   } else {
@@ -210,13 +302,15 @@ extern "C" int sczk_g1_masked_op(int op, const void* ax, const void* ay, const v
 }
 
 // keys, pid: int64 [E]; neg: uint8 [E]; bases: the point table pid
-// indexes; scanned: [steps, T]; repaired: one int32, incremented.
+// indexes (fewer than 2^29 points); scanned: [steps, T]; repaired: one
+// int32, incremented.
 extern "C" int sczk_g1_accumulate(const void* keys, const void* pid, const void* neg, long long E,
                                   const void* bx, const void* by, const void* bz, int T, int steps,
                                   void* sx, void* sy, void* sz, void* repaired, const void* consts,
                                   void* stream) {
   if (T <= 0 || steps <= 0 || E < 0 || E > (long long)T * steps) return (int)cudaErrorInvalidValue;
-  accumulate_kernel<<<blocks(T), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  accumulate_team_kernel<<<(T + kScanLanes - 1) / kScanLanes, kTeamThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(keys), static_cast<const int64_t*>(pid),
       static_cast<const uint8_t*>(neg), E, coords(bx, by, bz), (unsigned)T, (unsigned)steps,
       out_coords(sx, sy, sz), static_cast<int*>(repaired), consts_of(consts));
@@ -257,10 +351,10 @@ extern "C" int sczk_imad_chain(const void* a, int n, void* out, void* stream) {
 // out: int32 [2].
 extern "C" int sczk_g1_attrs(int which, int* out) {
   const void* fns[] = {
-      reinterpret_cast<const void*>(&point_op_kernel<0>),
+      reinterpret_cast<const void*>(&add_team_kernel),
       reinterpret_cast<const void*>(&point_op_kernel<1>),
       reinterpret_cast<const void*>(&point_op_kernel<2>),
-      reinterpret_cast<const void*>(&accumulate_kernel),
+      reinterpret_cast<const void*>(&accumulate_team_kernel),
       reinterpret_cast<const void*>(&scalar_mul_kernel),
       reinterpret_cast<const void*>(&masked_op_kernel<0>),
       reinterpret_cast<const void*>(&masked_op_kernel<1>),

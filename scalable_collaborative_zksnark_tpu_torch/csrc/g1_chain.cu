@@ -21,19 +21,14 @@
 // * The product: fq_mul_cc splits each CIOS row into two independent
 //   carry-flag chains (fq_chain.cuh).
 // * Horner: each column is worked by a team of kTeam lanes of one warp
-//   (one block).  At each dependency level of the double (3 levels: A,
-//   B, YZ; then C, (X + B)^2, E^2; then E (D - X3)) and of the general
-//   add (5 levels, at most 5 products wide) lane k computes the level's
-//   k-th product, and the products are exchanged by warp shuffles.  Every
-//   lane runs the same instructions on its own operands, so a level costs
-//   one product's latency: a double 3 products deep and an add 5, where
-//   one thread runs 7 and 16.  The linear steps are computed by every
-//   lane on the values all of them hold, so the infinity and x-collision
-//   branches are taken by the whole team alike.  The column's W window
-//   totals are loaded into shared memory first.  Doubling the first
-//   window's infinity c times and adding the total gives the total
-//   itself, so the walk starts from the MSB window's total: the same
-//   result, bit for bit.
+//   (one block), on g1_team.cuh's group law by dependency levels: a
+//   double costs 3 product latencies and an add 5, where one thread runs
+//   7 and 16 products.  Since a level is at most 4 products wide, at most
+//   4 of the 8 lanes are busy.  The column's W window totals are loaded
+//   into shared memory first.  Doubling the first window's infinity c
+//   times and adding the total gives the total itself, so the walk starts
+//   from the MSB window's total: the same result, bit for bit.  159
+//   registers, no spill.
 // * Bucket-serial: each lane's buckets are cut into S segments of L =
 //   ceil((K - 1) / S) buckets (S from bucket_segments in curves/cuda_g1.py,
 //   which also the plain version reads).  One thread per (lane, segment)
@@ -53,149 +48,29 @@
 
 #include <cstdint>
 
-#include "fq_chain.cuh"
-#include "g1.cuh"
+#include "g1_team.cuh"
 
 namespace {
 
-constexpr int kTeam = 8;                     // lanes per Horner column
-constexpr unsigned kTeamMask = 0xFFu;        // the block's lanes 0 .. 7
+constexpr int kTeam = 8;                     // lanes per Horner column, one block
 constexpr int kSegThreads = 64;              // bucket-serial threads per block
 constexpr int kMaxHornerWindows = 48 * 1024 / (int)sizeof(Pt);
-
-// The group law of g1.cuh on fq_mul_cc.
-struct FqMulCC {
-  __device__ __forceinline__ static void mul(uint32_t* r, const uint32_t* a, const uint32_t* b,
-                                             const FieldConst<NQ>& f) {
-    fq_mul_cc(r, a, b, f);
-  }
-};
-
-// One product of a team level: r = a b.
-struct Prod {
-  const uint32_t* a;
-  const uint32_t* b;
-  uint32_t* r;
-};
-
-// The K independent products of one level: lane k computes the k-th
-// (lanes past K repeat the first), then every lane reads each result from
-// the lane that computed it.  Every lane must hold the same operands.
-template <int K>
-__device__ __forceinline__ void team_level(const Prod (&ps)[K], unsigned lane,
-                                           const FieldConst<NQ>& f) {
-  uint32_t x[NQ], y[NQ], p[NQ];
-#pragma unroll
-  for (int j = 0; j < NQ; ++j) {
-    x[j] = ps[0].a[j];
-    y[j] = ps[0].b[j];
-  }
-#pragma unroll
-  for (int k = 1; k < K; ++k) {
-    const bool mine = lane == (unsigned)k;
-#pragma unroll
-    for (int j = 0; j < NQ; ++j) {
-      x[j] = mine ? ps[k].a[j] : x[j];
-      y[j] = mine ? ps[k].b[j] : y[j];
-    }
-  }
-  fq_mul_cc(p, x, y, f);
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-#pragma unroll
-    for (int j = 0; j < NQ; ++j) ps[k].r[j] = K == 1 ? p[j] : __shfl_sync(kTeamMask, p[j], k, kTeam);
-  }
-}
-
-// dbl-2009-l as g1_double, by levels; r may alias p.
-__device__ __forceinline__ void team_double(Pt& r, const Pt& p, const G1Const& c, unsigned lane) {
-  const FieldConst<NQ>& f = c.f;
-  const bool inf = fq_is_zero(p.z);
-  uint32_t A[NQ], B[NQ], YZ[NQ], t[NQ], E[NQ], C[NQ], T2[NQ], G[NQ], D[NQ], u[NQ], Y3[NQ];
-  team_level<3>({{p.x, p.x, A}, {p.y, p.y, B}, {p.y, p.z, YZ}}, lane, f);
-  fadd<NQ>(t, p.x, B, f);
-  fadd<NQ>(E, A, A, f);
-  fadd<NQ>(E, E, A, f);  // E = 3A
-  team_level<3>({{B, B, C}, {t, t, T2}, {E, E, G}}, lane, f);
-  fsub<NQ>(D, T2, A, f);
-  fsub<NQ>(D, D, C, f);
-  fadd<NQ>(D, D, D, f);  // D = 2((X + B)^2 - A - C)
-  fadd<NQ>(u, D, D, f);
-  fsub<NQ>(r.x, G, u, f);  // X3 = E^2 - 2D
-  fsub<NQ>(u, D, r.x, f);
-  team_level<1>({{E, u, Y3}}, lane, f);
-  fadd<NQ>(C, C, C, f);
-  fadd<NQ>(C, C, C, f);
-  fadd<NQ>(C, C, C, f);  // 8C
-  fsub<NQ>(r.y, Y3, C, f);  // Y3 = E (D - X3) - 8C
-  if (inf) {
-#pragma unroll
-    for (int j = 0; j < NQ; ++j) r.z[j] = 0u;
-  } else {
-    fadd<NQ>(r.z, YZ, YZ, f);  // Z3 = 2 Y Z
-  }
-}
-
-// Complete add-2007-bl as g1_add<false>, by levels; r may alias p1.
-__device__ __forceinline__ void team_add(Pt& r, const Pt& p1, const Pt& p2, const G1Const& c,
-                                         unsigned lane) {
-  if (fq_is_zero(p1.z)) {
-    r = p2;
-    return;
-  }
-  if (fq_is_zero(p2.z)) {
-    r = p1;
-    return;
-  }
-  const FieldConst<NQ>& f = c.f;
-  uint32_t ZS[NQ], Z1Z1[NQ], Z2Z2[NQ], Y1Z2[NQ], Y2Z1[NQ], ZS2[NQ];
-  uint32_t U1[NQ], S1[NQ], U2[NQ], S2[NQ], H[NQ], R[NQ];
-  fadd<NQ>(ZS, p1.z, p2.z, f);
-  team_level<5>({{p1.z, p1.z, Z1Z1}, {p2.z, p2.z, Z2Z2}, {p1.y, p2.z, Y1Z2}, {p2.y, p1.z, Y2Z1},
-                 {ZS, ZS, ZS2}}, lane, f);
-  team_level<4>({{p1.x, Z2Z2, U1}, {Y1Z2, Z2Z2, S1}, {p2.x, Z1Z1, U2}, {Y2Z1, Z1Z1, S2}}, lane, f);
-  fsub<NQ>(H, U2, U1, f);
-  fsub<NQ>(R, S2, S1, f);
-  if (fq_is_zero(H)) {
-    if (fq_is_zero(R)) {
-      team_double(r, p1, c, lane);
-    } else {
-      set_infinity(r, c);
-    }
-    return;
-  }
-  uint32_t t[NQ], HH[NQ], Z3[NQ], I[NQ], J[NQ], V[NQ], R2[NQ], T[NQ], SJ[NQ];
-  fsub<NQ>(t, ZS2, Z1Z1, f);
-  fsub<NQ>(t, t, Z2Z2, f);
-  team_level<2>({{H, H, HH}, {t, H, Z3}}, lane, f);  // Z3 = ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) H
-  fadd<NQ>(I, HH, HH, f);
-  fadd<NQ>(I, I, I, f);  // I = 4 HH
-  fadd<NQ>(R, R, R, f);  // r2 = 2r
-  team_level<3>({{H, I, J}, {U1, I, V}, {R, R, R2}}, lane, f);
-  fsub<NQ>(R2, R2, J, f);
-  fadd<NQ>(t, V, V, f);
-  fsub<NQ>(r.x, R2, t, f);  // X3 = r2^2 - J - 2V
-  fsub<NQ>(t, V, r.x, f);
-  team_level<2>({{R, t, T}, {S1, J, SJ}}, lane, f);
-  fadd<NQ>(SJ, SJ, SJ, f);
-  fsub<NQ>(r.y, T, SJ, f);  // Y3 = r2 (V - X3) - 2 S1 J
-  fq_copy(r.z, Z3);
-}
 
 // tot: [W, C] window totals, window 0 least significant; one block of
 // kTeam lanes per column, the column's totals in shared memory.
 __global__ void __launch_bounds__(kTeam)
     horner_team_kernel(Coords tot, unsigned W, unsigned C, int cbits, OutCoords out, G1Const c) {
   extern __shared__ Pt win[];  // [W]
-  const unsigned col = blockIdx.x, lane = threadIdx.x;
-  for (unsigned w = lane; w < W; w += kTeam) load_point(tot, (size_t)w * C + col, win[w]);
+  const unsigned col = blockIdx.x;
+  const Team<kTeam> tm = Team<kTeam>::here();
+  for (unsigned w = tm.lane; w < W; w += kTeam) load_point(tot, (size_t)w * C + col, win[w]);
   __syncthreads();
   Pt acc = win[W - 1];
   for (int w = (int)W - 2; w >= 0; --w) {
-    for (int j = 0; j < cbits; ++j) team_double(acc, acc, c, lane);
-    team_add(acc, acc, win[w], c, lane);
+    for (int j = 0; j < cbits; ++j) team_double(acc, acc, c, tm);
+    team_add<false>(acc, acc, win[w], c, tm);
   }
-  if (lane == 0) store_point(out, col, acc);
+  team_store(out, col, acc, tm);
 }
 
 // buckets: [K, M], bucket k ascending; S segments of L buckets per lane.

@@ -8,11 +8,12 @@ with the scan and repair around it in ``primitives/msm.py``
 (``accumulate``); ``_scalar_mul_kernel`` (``scalar_mul``);
 ``_horner_kernel`` (``horner``); ``_bucket_serial_kernel``
 (``bucket_serial``).  The kernels are ``csrc/g1.cu`` on the group law of
-``csrc/g1.cuh``, and, for Horner and bucket-serial, ``csrc/g1_chain.cu``
-on the same formulas with the low-latency product of
-``csrc/fq_chain.cuh``; see those files for the design and what bounds it.
-Bucket-serial runs a segmented schedule (``bucket_segments``), which its
-plain version follows step for step.
+``csrc/g1.cuh``, and ``csrc/g1_chain.cu`` (Horner, bucket-serial); the
+general ``add``, the accumulate and Horner run the same formulas by
+dependency levels on a team of lanes (``csrc/g1_team.cuh``), on the
+low-latency product of ``csrc/fq_chain.cuh``; see those files for the
+design and what bounds it.  Bucket-serial runs a segmented schedule
+(``bucket_segments``), which its plain version follows step for step.
 
 A point is a tuple ``(x, y, z)`` of ``int32 [..., 24]`` Fq Montgomery
 limbs (Jacobian; z = 0 is infinity, written (0, 1, 0)).  A CPU tensor
@@ -66,6 +67,8 @@ _CHAIN_SIGNATURES = {
 ATTR_KERNELS = ("add", "add_mixed", "double", "accumulate", "scalar_mul", "add_masked",
                 "add_reset")
 CHAIN_ATTR_KERNELS = ("horner", "bucket_serial")
+
+MAX_ACCUMULATE_BASES = 1 << 29  # the accumulate stages a base index in 29 bits
 
 SEGMENT_FILL_THREADS = 132 * 4 * 32
 """Threads that put four warps on each of the H100's 132 SMs: bucket-serial
@@ -487,6 +490,8 @@ def _launch_accumulate(spec, keys, pid, neg, bases, T, steps):
         if x.device != bases[0].device:
             raise TypeError(f"operands on {x.device} and {bases[0].device}")
     n = bases[0].shape[0]
+    if n >= MAX_ACCUMULATE_BASES:
+        raise ValueError(f"{n} bases; the accumulate takes fewer than {MAX_ACCUMULATE_BASES}")
     base = [_operand(a, (n, spec.num_limbs)) for a in bases]
     keys, pid, neg = keys.contiguous(), pid.contiguous(), neg.contiguous()
     out = _empty(spec, (steps, T), keys.device)

@@ -1,9 +1,25 @@
-"""Horner, bucket-serial and the Fq product chain, timed on their own.
+"""Point add, the accumulate, Horner, bucket-serial and the Fq product
+chain, timed on their own.
 
     python -m scalable_collaborative_zksnark_tpu_torch.scripts.chain_bench [--device cuda]
 
 Prints one JSON object:
 
+* ``add_ms``: ``cuda_g1.add`` on seeded random points (Z != 1) at each
+  ``--add`` lane count (default 3, 96 and 8,192, the commonest shapes of
+  the (16, 8) prove): ``device``, the device time a call
+  (``torch.profiler``, every kernel the call launches; null on the CPU),
+  and ``events``, the time between CUDA events around one call, which at
+  a few lanes is the host's time for the call;
+* ``accumulate_ms``: ``cuda_g1.accumulate`` on the call that an MSM of
+  seeded bases and scalars makes, at each ``--accumulate`` shape
+  (``device`` and ``events`` as for ``add_ms``; the wrapper's call also
+  zeroes and reads back its repair count):
+  ``msm:N,B`` (``msm`` of B scalar rows over N bases; default 8192,3, the
+  prove's ``c_commit`` shape (a)) or ``ragged:TOP,B`` (``msm_ragged`` over
+  levels TOP, TOP/2, .. 1, batch B; default 4096,3, its ``c_open`` chain
+  (c)); each row gives the call's (E, T, steps).  The MSM stops at that
+  call;
 * ``horner_ms``: ``cuda_g1.horner`` on seeded random window totals (Z != 1)
   at each ``--horner`` shape W,C,c (default: the (16, 8) prove's
   ``c_commit`` shape 32,3,8 and its ``c_open`` chain's 43,39,6);
@@ -20,7 +36,7 @@ Prints one JSON object:
   what one product compiles to.
 
 Kernel times are medians of ``--reps`` runs, each between CUDA events
-after a warm-up (host clock on the CPU).  The script reaches only entry
+after a warm-up (host clock on the CPU), unless a row says otherwise.  The script reaches only entry
 points that the port has had since its G1 slice, plus the newer ones when
 they are there, so a copy of it times an older checkout of the port just
 as well: two versions can be compared in one call on one card.
@@ -39,11 +55,13 @@ import subprocess
 import time
 
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from .. import bench, cuda_build
 from ..curves import cuda_g1
 from ..curves.g1 import bls12_381_g1, map_points
 from ..device import DEFAULT, resolve, sync
+from ..primitives import msm
 from ..primitives.poly_comm import rand_points_flat
 
 
@@ -64,6 +82,71 @@ def _ms(fn, dev: torch.device, reps: int) -> float:
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def _device_ms(fn, dev: torch.device, reps: int):
+    """Device milliseconds a run of ``fn``: the own device time of every
+    kernel and copy it launches over ``reps`` runs under ``torch.profiler``
+    (after a warm-up), over ``reps``; None on the CPU or when the profiler
+    reports no device time."""
+    if dev.type != "cuda":
+        return None
+    fn()
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync(dev)
+    total = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+                for e in prof.key_averages())
+    return total / 1e3 / reps if total > 0 else None
+
+
+class _Kept(Exception):
+    """Stops an MSM once its accumulate call is kept."""
+
+
+def accumulate_call(curve, kind: str, n: int, batch: int, seed: int = 101) -> tuple:
+    """The arguments of the first ``cuda_g1.accumulate`` call that ``msm``
+    (``kind`` "msm": ``batch`` rows of scalars over ``n`` bases) or
+    ``msm_ragged`` ("ragged": levels n, n/2, .. 1, batch ``batch``) makes
+    on seeded random bases and scalars."""
+    F = curve.fr
+    if kind == "msm":
+        bases = rand_points_flat(curve, n, seed)
+        scal = F.decode(F.random((batch, n), seed + 1))
+        run = lambda: msm.msm(curve, bases, scal)  # noqa: E731
+    elif kind == "ragged":
+        sizes = [n >> k for k in range(n.bit_length())]
+        flat = rand_points_flat(curve, sum(sizes), seed)
+        offs = [sum(sizes[:k]) for k in range(len(sizes))]
+        levels = [map_points(lambda a, o=o, k=k: a[o:o + k], flat) for o, k in zip(offs, sizes)]
+        scal = F.decode(F.random((batch, sum(sizes)), seed + 1))
+        chunks = list(torch.split(scal, sizes, dim=1))
+        run = lambda: msm.msm_ragged(curve, levels, chunks)  # noqa: E731
+    else:
+        raise ValueError(f"unknown MSM kind {kind!r}: want msm or ragged")
+    kept = []
+
+    class _Keep:
+        def __getattr__(self, name):
+            return getattr(cuda_g1, name)
+
+        @staticmethod
+        def accumulate(*args):
+            kept.append(args)
+            raise _Kept
+
+    msm.cuda_g1 = _Keep()
+    try:
+        run()
+    except _Kept:
+        pass
+    finally:
+        msm.cuda_g1 = cuda_g1
+    if not kept:
+        raise ValueError(f"{kind} {n},{batch} makes no accumulate call (a naive MSM?)")
+    return kept[0]
 
 
 def _points(curve, shape, seed: int):
@@ -97,12 +180,29 @@ def _card(dev: torch.device) -> str:
                           check=True, capture_output=True, text=True).stdout.strip()
 
 
+ADD_LANES = (3, 96, 8192)
+ACCUMULATE_CALLS = (("msm", 8192, 3), ("ragged", 4096, 3))
+
+
 def run(device=DEFAULT, horner=((32, 3, 8), (43, 39, 6)), buckets=((33, 1677),),
-        segments=(1, 2, 4, 8), reps: int = 10, prove_repeat: int = 5, sass: bool = False) -> dict:
+        segments=(1, 2, 4, 8), reps: int = 10, prove_repeat: int = 5, sass: bool = False,
+        add_lanes=ADD_LANES, accumulate=ACCUMULATE_CALLS) -> dict:
     dev = resolve(device)
     curve = bls12_381_g1(dev)
     spec = curve.fq.spec
-    out = {"card": _card(dev), "horner_ms": {}, "bucket_serial_ms": {}, "fq_chain_us": {}}
+    out = {"card": _card(dev), "add_ms": {}, "accumulate_ms": {}, "horner_ms": {},
+           "bucket_serial_ms": {}, "fq_chain_us": {}}
+    for k, m in enumerate(add_lanes):
+        p1, p2 = _points(curve, (m,), 61 + 2 * k), _points(curve, (m,), 62 + 2 * k)
+        call = lambda: cuda_g1.add(spec, p1, p2)  # noqa: E731
+        out["add_ms"][str(m)] = {"device": _device_ms(call, dev, reps),
+                                 "events": _ms(call, dev, reps)}
+    for kind, n, batch in accumulate:
+        args = accumulate_call(curve, kind, n, batch)
+        call = lambda: cuda_g1.accumulate(*args)  # noqa: E731
+        out["accumulate_ms"][f"{kind}:{n},{batch}"] = {
+            "shape": [args[1].shape[0], args[5], args[6]],
+            "device": _device_ms(call, dev, reps), "events": _ms(call, dev, reps)}
     for k, (W, C, c) in enumerate(horner):
         tot = _points(curve, (W, C), 81 + k)
         out["horner_ms"][f"{W},{C},{c}"] = _ms(lambda: cuda_g1.horner(spec, tot, c), dev, reps)
@@ -142,6 +242,17 @@ def _shapes(text: str, n: int):
     return shapes
 
 
+def _msm_calls(text: str):
+    """``kind:N,B`` shapes separated by ';' (an empty text: none)."""
+    calls = []
+    for item in filter(None, text.split(";")):
+        kind, _, shape = item.partition(":")
+        if kind not in ("msm", "ragged"):
+            raise argparse.ArgumentTypeError(f"{item!r}: want msm:N,B or ragged:TOP,B")
+        calls.append((kind, *_shapes(shape, 2)[0]))
+    return calls
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=DEFAULT)
@@ -151,13 +262,19 @@ def main(argv=None) -> int:
                     help="K,M shapes separated by ';'")
     ap.add_argument("--segments", type=lambda t: [int(v) for v in t.split(",")],
                     default=[1, 2, 4, 8])
+    ap.add_argument("--add", type=lambda t: [int(v) for v in t.split(",") if v],
+                    default=list(ADD_LANES), help="lane counts of point add, separated by ','")
+    ap.add_argument("--accumulate", type=_msm_calls, default=list(ACCUMULATE_CALLS),
+                    help="MSM calls whose accumulate is timed: msm:N,B or ragged:TOP,B, "
+                         "separated by ';'")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--prove-repeat", type=int, default=5)
     ap.add_argument("--no-prove", action="store_true")
     ap.add_argument("--sass", action="store_true")
     args = ap.parse_args(argv)
     print(json.dumps(run(args.device, args.horner, args.bucket, args.segments, args.reps,
-                         0 if args.no_prove else args.prove_repeat, args.sass)), flush=True)
+                         0 if args.no_prove else args.prove_repeat, args.sass, args.add,
+                         args.accumulate)), flush=True)
     return 0
 
 

@@ -1,5 +1,6 @@
-"""The G1 kernels, the dense MSM, the strided Fr products and the int8
-engine on the card, against the plain versions.  Every test here needs a CUDA card and skips without one; the
+"""The G1 kernels (also the team kernels at the prove's shapes), the dense
+MSM, the strided Fr products and the int8 engine on the card, against the
+plain versions.  Every test here needs a CUDA card and skips without one; the
 file imports nothing of JAX, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_card.py tests/test_torch_package.py -m gpu
@@ -73,6 +74,28 @@ def test_chain_kernels_match_plain_on_card(cuda):
     a = torch.cat([Fq.random((4096,), 8), edge.repeat_interleave(4, dim=0)])
     b = torch.cat([Fq.random((4096,), 9), edge.repeat(4, 1)])
     assert torch.equal(cuda_g1.fq_mul_cc(spec, a, b), cuda_fr.mul(spec, a, b))
+
+
+@pytest.mark.gpu
+def test_team_kernels_match_plain_on_card(cuda):
+    """Point add (a team of 4 lanes a point) at 3, 96 and 8,192 lanes, with
+    the six edge lanes at 3 and 8,192, and the accumulate (a team of 4
+    lanes a scan lane) on ``chip_smoke.accumulate_cases``: a forced
+    x-collision, a warp whose teams diverge (resets, adds, cancels,
+    padding and doublings at one step) and random keys over two staging
+    chunks; bit for bit against their plain versions, one launch a call."""
+    C = bls12_381_g1(cuda)
+    spec = C.fq.spec
+    before = cuda_g1.add.launches
+    held = chip_smoke.check_add_lanes(C, (3, 96, 8192))
+    assert cuda_g1.add.launches == before + len(held)
+    for name, args in chip_smoke.accumulate_cases(C):
+        before = cuda_g1.accumulate.launches
+        out, doubled = cuda_g1.accumulate(spec, *args)
+        assert cuda_g1.accumulate.launches == before + 1
+        want, want_doubled = cuda_g1.accumulate.plain(spec, *args)
+        assert doubled == want_doubled > 0, name
+        assert all(torch.equal(a, b) for a, b in zip(out, want, strict=True)), name
 
 
 @pytest.mark.gpu

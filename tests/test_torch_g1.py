@@ -284,12 +284,21 @@ def test_bucket_segments():
 
 def test_chain_bench_on_cpu(capsys):
     """``scripts/chain_bench.py`` at tiny shapes through the plain versions:
-    one JSON object with a time per Horner shape and per bucket shape and
-    segment count, no product chain (a card-only probe) and no prove."""
+    one JSON object with a time per point-add lane count (host time only:
+    no device time on the CPU), per accumulate call (the one a ragged MSM
+    over levels 8, 4, 2, 1 makes, with its shape), per Horner shape and
+    per bucket shape and segment count, no product chain (a card-only
+    probe) and no prove."""
     chain_bench.main(["--device", "cpu", "--horner", "3,2,2;2,1,1", "--bucket", "5,3",
-                      "--segments", "1,2", "--reps", "1", "--no-prove"])
+                      "--segments", "1,2", "--reps", "1", "--no-prove", "--add", "3",
+                      "--accumulate", "ragged:8,1"])
     out = json.loads(capsys.readouterr().out)
     assert out["card"] == "cpu" and set(out["horner_ms"]) == {"3,2,2", "2,1,1"}
+    assert set(out["add_ms"]) == {"3"} and out["add_ms"]["3"]["device"] is None
+    assert out["add_ms"]["3"]["events"] > 0
+    acc = out["accumulate_ms"]["ragged:8,1"]
+    E, T, steps = acc["shape"]
+    assert acc["events"] > 0 and acc["device"] is None and 0 < E <= T * steps < E + T
     row = out["bucket_serial_ms"]["5,3"]
     assert set(row) == {"default", "default_segments", "S=1", "S=2"}
     assert row["default_segments"] == cuda_g1.bucket_segments(5, 3)
