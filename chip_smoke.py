@@ -10,10 +10,12 @@ Phases (any failure raises and exits non-zero):
    in parallel);
 2. hold each kernel (Fr mul/add/sub, the Fq instances, the limb-major
    and tiled Fr products on 2^20 elements, also against Fr mul after the
-   layout transform; the sumcheck fold phase; the G1 point ops, ``add_masked`` and ``add_reset`` on 2^16
-   points and an edge set, the scalar ladder on 1,024 full scalars and 0,
-   1, r - 1, the accumulate on a forced x-collision, on a warp whose
-   teams diverge and on random keys over two staging chunks) bit for bit against
+   layout transform; the sumcheck fold phase; the G1 point ops on 2^16
+   points and an edge set, ``add_masked`` and ``add_reset`` there under a
+   random mask, masks of all 0s, all 1s and alternating, the scalar ladder
+   on 1,024 full scalars and 0, 1, r - 1, on a warp whose teams diverge
+   and on 2-limb scalars, the accumulate on a forced x-collision, on a
+   warp whose teams diverge and on random keys over two staging chunks) bit for bit against
    its plain PyTorch version on the card, and time both (CUDA events,
    median of 10 or more for the kernels); print each kernel's registers
    and spill bytes, and the latency of one dependent multiply-add (a
@@ -45,14 +47,18 @@ Phases (any failure raises and exits non-zero):
    set to 0 just before it and read just after; each prove's canonical
    digest and comm against the JAX-made pins; the non-dense prove's first
    and last ``add_masked`` step of every bucket loop replayed through the
-   plain version; one more dense prove under ``torch.profiler`` (device
-   time by kernel, Horner's and bucket-serial's, the device's busy share);
-   one whose point-add, Horner and bucket-serial call shapes are kept
-   (histograms; ``add`` held against its plain version at every lane count
-   it saw, with edge lanes at 3 and 8,192, and timed at the four most
+   plain version; one more prove in each MSM configuration under
+   ``torch.profiler`` (device time by kernel, each team kernel's, the
+   device's busy share); one dense prove whose point-add, Horner,
+   bucket-serial and ladder call shapes are kept (histograms; ``add`` held
+   against its plain version at every lane count it saw, with edge lanes
+   at 3 and 8,192, and timed at the four most frequent; the ladder held
+   and timed at every shape it saw) and one non-dense prove whose
+   ``add_masked`` lane counts are kept (held and timed at the four most
    frequent); the dense
-   prove must launch point add 854, the accumulate 15, Horner 15 and
-   bucket-serial 12 times; the (6, 1) prove in both
+   prove must launch point add 854, the accumulate 15, Horner 15,
+   bucket-serial 12 and the ladder 3 times, the non-dense one
+   ``add_masked`` 1,755 and the ladder 3, the SRS bases the ladder 6; the (6, 1) prove in both
    configurations, pinned; the int8-engine configuration (``SCZK_MXU=1``):
    the gate identity against its pin, ``mxu_sumcheck.product_phase``
    against the fold-phase kernel on ``[6, 2^13]`` tables, the (16, 8)
@@ -96,6 +102,7 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from scalable_collaborative_zksnark_tpu_torch import bench as bench_module
@@ -123,7 +130,6 @@ from scalable_collaborative_zksnark_tpu_torch.primitives.sumcheck import (
 )
 from scalable_collaborative_zksnark_tpu_torch.pss.pss import PackedSharingParams
 from scalable_collaborative_zksnark_tpu_torch.scripts import exp_fieldmul, mxu_micro
-from scalable_collaborative_zksnark_tpu_torch.utils import timer
 from scalable_collaborative_zksnark_tpu_torch.utils.digest import (
     limb_digest,
     point_digest,
@@ -227,9 +233,15 @@ FQ_MULS = 4 * 12 * 12 + 12  # 32-bit multiplies of one Fq CIOS product
 ADD_DEPTH, DOUBLE_DEPTH = 5, 3
 # point add, accumulate, Horner and bucket-serial launches of one dense
 # (16, 8) prove
-PROVE_G1_LAUNCHES = {"g1_add": 854, "g1_accumulate": 15, "g1_horner": 15, "g1_bucket_serial": 12}
-# the names the profiler gives the kernels of point add and the accumulate
+PROVE_G1_LAUNCHES = {"g1_add": 854, "g1_accumulate": 15, "g1_horner": 15, "g1_bucket_serial": 12,
+                     "g1_scalar_mul": 3}
+# the ladder and masked-add launches of one non-dense (16, 8) prove, and
+# the ladders of the SRS bases' set-up
+PROVE_NONDENSE_G1_LAUNCHES = {"g1_add_masked": 1755, "g1_scalar_mul": 3}
+SRS_LADDERS = 6
+# the names the profiler gives the team kernels of g1.cu
 ADD_KERNEL, ACCUMULATE_KERNEL = "add_team_kernel", "accumulate_team_kernel"
+LADDER_KERNEL, MASKED_KERNEL = "scalar_mul_team_kernel", "masked_op_team_kernel"
 
 
 def _smi(query: str) -> str:
@@ -255,22 +267,35 @@ def _ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def _device_ms(fn, tag: str, reps: int = 10):
+def _device_ms(fn, tag: str, reps: int = 10, sessions: int = 3):
     """Mean device milliseconds of the kernels whose name holds ``tag``
     over ``reps`` runs of ``fn`` under ``torch.profiler`` (after one
     warm-up run): the kernel's own time where the host's time per call
-    exceeds it, which events around the call would measure instead.  None
-    (not measured) when the profiler reports none of those launches."""
+    exceeds it, which events around the call would measure instead.  A
+    session around a few launches sometimes reports none of them, so up
+    to ``sessions`` are tried; None (not measured) when none reports one."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if tag in e.key and _self_device_us(e) > 0]
-    if not events:
-        return None
-    return sum(_self_device_us(e) for e in events) / 1e3 / sum(e.count for e in events)
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in _device_events(prof) if tag in e.key]
+        if events:
+            return sum(_self_device_us(e) for e in events) / 1e3 / sum(e.count for e in events)
+    return None
+
+
+def _device_events(prof) -> list:
+    """The profiler's averages of what ran on the card (kernels, copies,
+    memsets) with device time.  A host-side op reports its kernels' time
+    as its own too, and a ``timed`` span's range on the card spans the
+    kernels inside it, so a sum over every event would count that time
+    twice."""
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+            and _self_device_us(e) > 0]
 
 
 def _self_device_us(event) -> float:
@@ -544,7 +569,8 @@ def check_g1(curve, int_rate: float, lat_ms: float) -> dict:
                                 _ms(lambda: cuda_g1.double.plain(spec, p1), reps=3),
                                 _g1_bound(M * 7, 6 * M * 96, DOUBLE_DEPTH, int_rate, lat_ms))
 
-    # scalar ladder: 1,024 random full-width scalars and 0, 1, r - 1
+    # scalar ladder: 1,024 random full-width scalars and 0, 1, r - 1, then
+    # the diverging warp and the 2-limb scalars of ladder_cases
     Fr = curve.fr
     edge = np.stack([int_to_limbs(v, Fr.L) for v in (0, 1, Fr.p - 1)]).astype(np.int32)
     sc = torch.cat([Fr.decode(Fr.random((1024,), 63)), torch.from_numpy(edge).to(curve.device)])
@@ -555,15 +581,15 @@ def check_g1(curve, int_rate: float, lat_ms: float) -> dict:
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = _equal("g1 scalar_mul", out, ref)
-    # the add at a lane's first set bit meets infinity and costs no product
-    adds = [max(bin(int(v)).count("1") - 1, 0) for v in Fr.array_to_ints(Fr.encode(sc))]
-    nbits = 16 * Fr.L
-    lanes = sc.shape[0]
-    bound = _g1_bound(lanes * nbits * 7 + sum(adds) * 16, lanes * (2 * 288 + 4 * Fr.L),
-                      nbits * DOUBLE_DEPTH + max(adds) * ADD_DEPTH, int_rate, lat_ms)
-    rows["g1_scalar_mul"] = _g1_row("scalar_mul", (lanes, Fr.L), err,
-                                    _ms(lambda: cuda_g1.scalar_mul(spec, pts, sc)), plain_ms,
-                                    bound)
+    run = lambda: cuda_g1.scalar_mul(spec, pts, sc)  # noqa: E731
+    rows["g1_scalar_mul"] = _g1_row("scalar_mul", tuple(sc.shape), err, _ms(run), plain_ms,
+                                    _ladder_bound(sc, int_rate, lat_ms))
+    rows["g1_scalar_mul"]["device_ms"] = _device_ms(run, LADDER_KERNEL)
+    held = []
+    for name, args in ladder_cases(curve):
+        _equal(f"g1 scalar_mul ({name})", cuda_g1.scalar_mul(spec, *args),
+               cuda_g1.scalar_mul.plain(spec, *args))
+        held.append(name)
 
     # the accumulate on a forced x-collision, a warp whose teams diverge and
     # random keys over two staging chunks (each case doubles somewhere)
@@ -574,8 +600,34 @@ def check_g1(curve, int_rate: float, lat_ms: float) -> dict:
         if out[1] <= 0:
             raise AssertionError(f"accumulate ({name}): no lane repaired")
         repaired[name] = out[1]
-    rows.update(check_masked(curve, int_rate, lat_ms))
-    return rows, {"accumulate_repaired": repaired}
+    masked_rows, masked_held = check_masked(curve, int_rate, lat_ms)
+    rows.update(masked_rows)
+    return rows, {"accumulate_repaired": repaired, "ladder_cases_held": held,
+                  "masked_cases_held": masked_held}
+
+
+def _ladder_bound(sc: torch.Tensor, int_rate: float, lat_ms: float):
+    """The ladder's bound on standard-form scalar limbs ``sc`` [m, L]: per
+    lane the point and the scalar read and the point written; the products
+    and the longest lane's chain of dependent products of the cheaper of
+    two schedules for these scalars: double-and-add (a double of 7
+    products at every bit, a general add of 16 at every set bit but a
+    lane's first, which meets infinity) and the kernel's 4-bit windows (a
+    double at every bit, a table of one double and 13 adds, an add at every
+    non-zero window but a lane's first)."""
+    lanes, L = sc.shape
+    nbits = 16 * L
+    sc = sc.to(torch.int64)
+    ones = sum(((sc >> b) & 1).sum(-1) for b in range(16))
+    windows = sum((((sc >> b) & 15) != 0).sum(-1) for b in range(0, 16, 4))
+    table = 13 * 16 + 7
+    serial = (lanes * nbits * 7 + int((ones - 1).clamp(min=0).sum()) * 16,
+              nbits * DOUBLE_DEPTH + int((ones - 1).clamp(min=0).max()) * ADD_DEPTH)
+    windowed = (lanes * (nbits * 7 + table) + int((windows - 1).clamp(min=0).sum()) * 16,
+                nbits * DOUBLE_DEPTH + DOUBLE_DEPTH
+                + (13 + int((windows - 1).clamp(min=0).max())) * ADD_DEPTH)
+    return _g1_bound(min(serial[0], windowed[0]), lanes * (2 * 288 + 4 * L),
+                     min(serial[1], windowed[1]), int_rate, lat_ms)
 
 
 def accumulate_cases(curve) -> list:
@@ -621,39 +673,79 @@ def accumulate_cases(curve) -> list:
     return cases
 
 
-def masked_inputs(curve, m: int):
-    """(p1, affine p2, mask) over m random points (Z != 1) and the six edge
-    lanes of ``_edge_points``: a random 0/1 mask, 1 on the edge lanes (two
-    x-collisions that double, a cancel, three with infinity)."""
+def ladder_cases(curve) -> list:
+    """(name, (points, scalars)) for the ladder, scalars standard-form
+    16-bit limbs, on random points (Z != 1):
+
+    * ``diverging_warp``: 8 lanes, one warp of 4-lane teams, on full-width
+      scalars whose bits set apart the warp's teams at every step: 0, 1,
+      r - 1, r (its last add cancels to infinity), r + 2 (its last add
+      meets its own point and doubles), 0xAAAA.., 0x5555.. and a random
+      scalar on the point at infinity;
+    * ``short_scalars``: 12 lanes, a full and a partial block, of 2-limb
+      scalars, as the SRS set-up's ladders take them: 0, 1, 2^32 - 1,
+      2^31 + 1 and random ones."""
+    Fr = curve.fr
+    P = curve.double(rand_points_flat(curve, 20, 76))
+    rng = np.random.RandomState(77)
+    full = [0, 1, Fr.p - 1, Fr.p, Fr.p + 2, (1 << 256) // 3 * 2, (1 << 256) // 3,
+            int(rng.randint(1, 1 << 62)) << 190]
+    short = [0, 1, (1 << 32) - 1, (1 << 31) + 1] + [int(v) for v in rng.randint(1, 1 << 31, 8)]
+    limbs = lambda vs, n: torch.from_numpy(  # noqa: E731
+        np.stack([int_to_limbs(v, n) for v in vs]).astype(np.int32)).to(curve.device)
+    inf = curve.infinity((1,))
+    pts = map_points(lambda a, b: torch.cat([a[:7], b]), P, inf)
+    return [("diverging_warp", (pts, limbs(full, Fr.L))),
+            ("short_scalars", (map_points(lambda a: a[8:], P), limbs(short, 2)))]
+
+
+def masked_cases(curve, m: int) -> list:
+    """(name, (p1, affine p2, mask)) for the masked adds over m random
+    points (Z != 1) and the six edge lanes of ``_edge_points`` (two
+    x-collisions that double, a cancel, three with infinity): a random 0/1
+    mask, 1 on the edge lanes, and masks of all 0s, all 1s and 0, 1
+    alternating (which masks off half the edge lanes)."""
     P = curve.double(rand_points_flat(curve, m, 64))
     Q = curve.double(rand_points_flat(curve, m, 65))
     p1, p2 = _edge_points(curve, P, Q)
-    mask = np.random.RandomState(66).randint(0, 2, size=p1.x.shape[0]).astype(bool)
+    a2 = curve.normalize(p2)
+    M = p1.x.shape[0]
+    mask = np.random.RandomState(66).randint(0, 2, size=M).astype(bool)
     mask[m:] = True
-    return p1, curve.normalize(p2), torch.from_numpy(mask).to(curve.device)
+    ones = torch.ones(M, dtype=torch.bool, device=curve.device)
+    alternating = torch.arange(M, device=curve.device) % 2 == 1
+    return [("random", (p1, a2, torch.from_numpy(mask).to(curve.device))),
+            ("zeros", (p1, a2, ~ones)), ("ones", (p1, a2, ones)),
+            ("alternating", (p1, a2, alternating))]
 
 
-def check_masked(curve, int_rate: float, lat_ms: float) -> dict:
+def check_masked(curve, int_rate: float, lat_ms: float):
     """add_masked and add_reset on 2^16 random points plus the edge lanes
-    against their plain versions, and timed; the bound counts 11 products
-    per masked random lane (4 + 7 on a doubling lane, 4 on the cancel),
-    and per lane the mask byte, the operand it copies or adds to and its
-    output, with the second operand only where the mask is set."""
+    against their plain versions under each mask of ``masked_cases``, and
+    timed under its random one; the bound counts 11 products per masked
+    random lane (4 + 7 on a doubling lane, 4 on the cancel), and per lane
+    the mask byte, the operand it copies or adds to and its output, with
+    the second operand only where the mask is set.  Returns (rows keyed by
+    kernel name, the cases held)."""
     spec = curve.fq.spec
     m = 1 << 16
-    p1, a2, mask = masked_inputs(curve, m)
+    cases = masked_cases(curve, m)
+    p1, a2, mask = cases[0][1]
     M = p1.x.shape[0]
     products = 11 * int(mask[:m].sum()) + 2 * (4 + 7) + 4
     nbytes = M * (1 + 2 * 288) + int(mask.sum()) * 288
-    rows = {}
+    rows, held = {}, []
     for op in ("add_masked", "add_reset"):
         kern = getattr(cuda_g1, op)
-        err = _equal(f"g1 {op}", kern(spec, p1, a2, mask), kern.plain(spec, p1, a2, mask))
+        errs = [_equal(f"g1 {op} ({name})", kern(spec, *args), kern.plain(spec, *args))
+                for name, args in cases]
+        held += [f"{op} {name}" for name, _ in cases]
         bound = _g1_bound(products, nbytes, ADD_DEPTH + DOUBLE_DEPTH, int_rate, lat_ms)
-        rows[f"g1_{op}"] = _g1_row(op, (M, spec.num_limbs), err,
-                                   _ms(lambda: kern(spec, p1, a2, mask)),
+        run = lambda: kern(spec, p1, a2, mask)  # noqa: E731
+        rows[f"g1_{op}"] = _g1_row(op, (M, spec.num_limbs), max(errs), _ms(run),
                                    _ms(lambda: kern.plain(spec, p1, a2, mask), reps=3), bound)
-    return rows
+        rows[f"g1_{op}"]["device_ms"] = _device_ms(run, MASKED_KERNEL)
+    return rows, held
 
 
 def chain_grid(curve):
@@ -1020,9 +1112,10 @@ def prove_phase(launches: dict, replayed: dict, int_rate: float, lat_ms: float) 
     synchronised spans), its digest and comm against the pins, then one
     prove counted on its own in each MSM configuration.  The non-dense
     prove's first and last ``add_masked`` step of every loop is replayed
-    through the plain version.  Then the ``SCZK_MXU=1`` proves, one dense
-    prove under ``torch.profiler`` and one whose G1 call shapes are kept
-    (``prove_shapes``)."""
+    through the plain version.  Then the ``SCZK_MXU=1`` proves, one prove
+    in each MSM configuration whose G1 call shapes are kept
+    (``prove_shapes``, ``nondense_shapes``) and one in each under
+    ``torch.profiler``."""
     n, l = PROVE["n"], PROVE["l"]
     report, (pk, net, _) = bench_module.run(n, l, "cuda", repeat=3)
     _check_pin(f"prove_n{n}_l{l}", int(report["digest"], 16))
@@ -1046,8 +1139,10 @@ def prove_phase(launches: dict, replayed: dict, int_rate: float, lat_ms: float) 
     report["comm_pinned"] = list(PINS[f"prove_n{n}_l{l}_comm"])
     del kept
     report.update(mxu_prove(pk, net, n, launches))
-    report["profile"] = profile_prove(pk, net, n)
     report["shapes"] = prove_shapes(pk, net, n, int_rate, lat_ms)
+    report["shapes_nondense"] = nondense_shapes(pk, net, n, int_rate, lat_ms)
+    report["profile"] = profile_prove(pk, net, n)
+    report["profile_nondense"] = profile_prove(pk, net, n, dense=False)
     del pk
     return report
 
@@ -1084,11 +1179,19 @@ def mxu_prove(pk, net, n: int, launches: dict, repeat: int = 3) -> dict:
 
 def _call_shape(name: str, args):
     """What sizes one call: lanes of a point add, (W, C, c) of Horner,
-    (K, M, S) of bucket-serial."""
+    (K, M, S) of bucket-serial, (lanes, scalar limbs) of the ladder,
+    (lanes, masked lanes) of ``add_masked``."""
     if name == "g1_add":
         return torch.broadcast_shapes(args[1][0].shape, args[2][0].shape)[:-1].numel()
     if name == "g1_horner":
         return tuple(args[1][0].shape[:2]) + (args[2],)
+    if name == "g1_scalar_mul":
+        pt, sc = args[1], args[2]
+        return (torch.broadcast_shapes(pt[0].shape[:-1], sc.shape[:-1]).numel(), sc.shape[-1])
+    if name == "g1_add_masked":
+        mask = args[3]
+        return (torch.broadcast_shapes(args[1][0].shape[:-1], mask.shape).numel(),
+                int(mask.sum()))
     K, M = args[1][0].shape[:2]
     return (K, M, cuda_g1.bucket_segments(K, M))
 
@@ -1116,28 +1219,45 @@ def check_add_lanes(curve, lanes) -> list:
     return cases
 
 
-def prove_shapes(pk, net, n: int, int_rate: float, lat_ms: float) -> dict:
-    """One dense prove with the shape of every point ``add``, Horner and
-    bucket-serial call kept (the calls themselves are not), as histograms;
-    then ``add`` held against its plain version at every lane count it saw
-    (``check_add_lanes``) and timed on random points (Z != 1) at its four
-    most frequent lane counts, beside its bound there: its device time (or
-    "not measured" where the profiler saw no launch), and the time between
-    CUDA events around one wrapper call, which at a few lanes is the host's
-    time for the call."""
+def _kept_shapes(pk, net, n: int, names, dense: bool = True) -> list:
+    """One prove in the MSM configuration ``dense`` with the shape of every
+    call to the G1 wrappers ``names`` kept (the calls themselves are not),
+    as (kernel name, ``_call_shape``)."""
     calls = []
 
     def keep(kept, entry):
         kept.append((entry[0], _call_shape(entry[0], entry[1])))
-    g1_module.cuda_g1 = msm_module.cuda_g1 = _Recorder(
-        cuda_g1, "g1_", ("add", "horner", "bucket_serial"), calls, keep=keep)
+    g1_module.cuda_g1 = msm_module.cuda_g1 = _Recorder(cuda_g1, "g1_", names, calls, keep=keep)
     try:
-        dhyperplonk(n, pk, net)
-        torch.cuda.synchronize()
+        with msm_config(dense):
+            dhyperplonk(n, pk, net)
+            torch.cuda.synchronize()
     finally:
         g1_module.cuda_g1 = msm_module.cuda_g1 = cuda_g1
+    return calls
+
+
+def _timed_row(run, tag: str, bound) -> dict:
+    """A kernel's device time a call (or "not measured" where the profiler
+    saw no launch) and the time between CUDA events around one wrapper
+    call, which at a few lanes is the host's time for the call, beside its
+    bound."""
+    device = _device_ms(run, tag)
+    return {"device_ms": "not measured" if device is None else device, "event_ms": _ms(run),
+            "bound_ms": bound[0], "bound_by": bound[1], "bound_kind": bound[2]}
+
+
+def prove_shapes(pk, net, n: int, int_rate: float, lat_ms: float) -> dict:
+    """One dense prove with the shape of every point ``add``, Horner,
+    bucket-serial and ladder call kept, as histograms; then ``add`` held
+    against its plain version at every lane count it saw
+    (``check_add_lanes``) and timed on random points (Z != 1) at its four
+    most frequent lane counts, and the ladder held and timed at every shape
+    it saw, on random points (Z != 1) and random scalars, each beside its
+    bound there (``_timed_row``)."""
+    calls = _kept_shapes(pk, net, n, ("add", "horner", "bucket_serial", "scalar_mul"))
     hist = {k: collections.Counter(s for name, s in calls if name == k)
-            for k in ("g1_add", "g1_horner", "g1_bucket_serial")}
+            for k in ("g1_add", "g1_horner", "g1_bucket_serial", "g1_scalar_mul")}
     curve, spec = pk.curve, pk.curve.fq.spec
     held = check_add_lanes(curve, hist["g1_add"])
     add_rows = []
@@ -1145,43 +1265,88 @@ def prove_shapes(pk, net, n: int, int_rate: float, lat_ms: float) -> dict:
         p1 = curve.double(rand_points_flat(curve, m, 72))
         p2 = curve.double(rand_points_flat(curve, m, 73))
         bound = _g1_bound(m * 16, 9 * m * 96, ADD_DEPTH, int_rate, lat_ms)
-        run = lambda: cuda_g1.add(spec, p1, p2)  # noqa: E731
-        device = _device_ms(run, ADD_KERNEL)
         add_rows.append({"lanes": m, "launches": count,
-                         "device_ms": "not measured" if device is None else device,
-                         "event_ms": _ms(run), "bound_ms": bound[0],
-                         "bound_by": bound[1], "bound_kind": bound[2]})
+                         **_timed_row(lambda: cuda_g1.add(spec, p1, p2), ADD_KERNEL, bound)})
+    ladder_rows = []
+    for (m, L), count in sorted(hist["g1_scalar_mul"].items()):
+        pts = curve.double(rand_points_flat(curve, m, 78))
+        sc = ladder_scalars(curve, m, L, 79)
+        _equal(f"g1 scalar_mul at {m} lanes x {L} limbs", cuda_g1.scalar_mul(spec, pts, sc),
+               cuda_g1.scalar_mul.plain(spec, pts, sc))
+        ladder_rows.append({"lanes": m, "limbs": L, "launches": count, **_timed_row(
+            lambda: cuda_g1.scalar_mul(spec, pts, sc), LADDER_KERNEL,
+            _ladder_bound(sc, int_rate, lat_ms))})
     return {"add_lanes_histogram": sorted(hist["g1_add"].items()),
             "add_held_at_lanes": held, "add_at_frequent_lanes": add_rows,
             "horner_shapes": sorted(hist["g1_horner"].items()),
-            "bucket_serial_shapes": sorted(hist["g1_bucket_serial"].items())}
+            "bucket_serial_shapes": sorted(hist["g1_bucket_serial"].items()),
+            "ladder_shapes": sorted(hist["g1_scalar_mul"].items()),
+            "ladder_at_prove_shapes": ladder_rows}
 
 
-def profile_prove(pk, net, n: int) -> dict:
-    """One dense prove under ``torch.profiler`` (host and CUDA activity):
-    the device time summed over every kernel and copy, its share of the
-    same prove's wall time, and the kernels that took most of it.  The
-    ``timed`` spans' ranges, which the profiler also reports with device
-    time, are left out.  Without device events the share is None: not
-    measured."""
+def ladder_scalars(curve, m: int, L: int, seed: int) -> torch.Tensor:
+    """m random standard-form scalars of L 16-bit limbs: field elements of
+    Fr at its full width, else random limbs."""
+    Fr = curve.fr
+    if L == Fr.L:
+        return Fr.decode(Fr.random((m,), seed))
+    limbs = np.random.RandomState(seed).randint(0, 1 << 16, size=(m, L))
+    return torch.from_numpy(limbs.astype(np.int32)).to(curve.device)
+
+
+def nondense_shapes(pk, net, n: int, int_rate: float, lat_ms: float) -> dict:
+    """One non-dense prove with the lanes and masked lanes of every
+    ``add_masked`` call kept: the lane histogram, and at its four most
+    frequent lane counts ``add_masked`` held against its plain version and
+    timed (``_timed_row``) on random points (Z != 1) under a random mask
+    with the mean masked share of the prove's calls at that count."""
+    calls = _kept_shapes(pk, net, n, ("add_masked",), dense=False)
+    hist = collections.Counter(m for _, (m, _) in calls)
+    curve, spec = pk.curve, pk.curve.fq.spec
+    rows = []
+    for m, count in hist.most_common(4):
+        masked = [k for _, (lanes, k) in calls if lanes == m]
+        share = sum(masked) / (m * len(masked))
+        p1 = curve.double(rand_points_flat(curve, m, 80))
+        a2 = rand_points_flat(curve, m, 81)
+        mask = torch.from_numpy(np.random.RandomState(82).random_sample(m) < share).to(curve.device)
+        run = lambda: cuda_g1.add_masked(spec, p1, a2, mask)  # noqa: E731
+        _equal(f"g1 add_masked at {m} lanes", run(), cuda_g1.add_masked.plain(spec, p1, a2, mask))
+        k = int(mask.sum())
+        bound = _g1_bound(11 * k, m * (1 + 2 * 288) + k * 288, ADD_DEPTH, int_rate, lat_ms)
+        rows.append({"lanes": m, "launches": count, "mean_masked_share": share,
+                     **_timed_row(run, MASKED_KERNEL, bound)})
+    return {"add_masked_lanes_histogram": sorted(hist.items()),
+            "add_masked_at_frequent_lanes": rows}
+
+
+def profile_prove(pk, net, n: int, dense: bool = True) -> dict:
+    """One prove in the MSM configuration ``dense`` under ``torch.profiler``
+    (host and CUDA activity): the device time summed over every kernel and
+    copy, its share of the same prove's wall time, the device time and
+    launches of each G1 team kernel, and the kernels that took most of it,
+    over what ran on the card (``_device_events``).  Without device events
+    the share is None: not measured."""
     torch.cuda.synchronize()
-    timer.clear()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with msm_config(dense), profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         dhyperplonk(n, pk, net)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = {label.replace(" ", "_") for label, _ in timer.records()}
-    events = [e for e in prof.key_averages() if e.key not in spans]
-    kern = sorted(((e.key, _self_device_us(e) / 1e6, e.count) for e in events
-                   if _self_device_us(e) > 0), key=lambda t: -t[1])
+    kern = sorted(((e.key, _self_device_us(e) / 1e6, e.count) for e in _device_events(prof)),
+                  key=lambda t: -t[1])
     busy = sum(t for _, t, _ in kern)
+    if busy > wall:  # one stream: the card cannot be busy longer than the prove took
+        raise AssertionError(f"profiled device time {busy} s exceeds the prove's {wall} s")
     of = lambda tag: [sum(t for k, t, _ in kern if tag in k),  # noqa: E731
                       sum(c for k, _, c in kern if tag in k)]
     return {"profiled_wall_s": wall, "device_busy_s": busy,
             "busy_share": busy / wall if kern else None,
             "add_device_s_launches": of(ADD_KERNEL),
             "accumulate_device_s_launches": of(ACCUMULATE_KERNEL),
+            "ladder_device_s_launches": of(LADDER_KERNEL),
+            "add_masked_device_s_launches": of(MASKED_KERNEL),
             "horner_device_s_launches": of("horner_team_kernel"),
             "bucket_serial_device_s_launches": of("bucket_segment_kernel"),
             "top_device_s": [[k, t, c] for k, t, c in kern[:12]]}
@@ -1303,6 +1468,9 @@ def main() -> int:
     bases = srs_bases(curve)
     torch.cuda.synchronize()
     launches["srs_bases"] = _counts()
+    if launches["srs_bases"]["g1_scalar_mul"] != SRS_LADDERS:
+        raise AssertionError(f"the SRS bases launched {launches['srs_bases']['g1_scalar_mul']} "
+                             f"ladders, not {SRS_LADDERS}")
     _check_pin("commit_bases", point_digest(curve, bases["c_commit"]))
     net, run_a = c_commit(curve, bases["c_commit"])
     runs = {"c_commit": run_a, "d_commit": d_commit(curve, bases["d_commit"]),
@@ -1348,6 +1516,10 @@ def main() -> int:
     dense = {k: launches["prove"][k] for k in PROVE_G1_LAUNCHES}
     if dense != PROVE_G1_LAUNCHES:
         raise AssertionError(f"the prove launched {dense}, not {PROVE_G1_LAUNCHES}")
+    nondense = {k: launches["prove_nondense"][k] for k in PROVE_NONDENSE_G1_LAUNCHES}
+    if nondense != PROVE_NONDENSE_G1_LAUNCHES:
+        raise AssertionError(f"the non-dense prove launched {nondense}, "
+                             f"not {PROVE_NONDENSE_G1_LAUNCHES}")
     print(json.dumps({"chain_summary": {
         "fq_product_cc_chain_us": chain_diag["fq_product_cc_chain_us"],
         "fq_product_fmul_chain_us": chain_diag["fq_product_fmul_chain_us"],
@@ -1356,8 +1528,12 @@ def main() -> int:
         "profiled_device_busy_s": prove["profile"]["device_busy_s"],
         "profiled_busy_share": prove["profile"]["busy_share"],
         **{f"{k}_device_s_launches": prove["profile"][f"{k}_device_s_launches"]
-           for k in ("add", "accumulate", "horner", "bucket_serial")},
-        "launches_per_prove": dense}}), flush=True)
+           for k in ("add", "accumulate", "horner", "bucket_serial", "ladder")},
+        "nondense_profiled_device_busy_s": prove["profile_nondense"]["device_busy_s"],
+        "nondense_profiled_busy_share": prove["profile_nondense"]["busy_share"],
+        "nondense_add_masked_device_s_launches":
+            prove["profile_nondense"]["add_masked_device_s_launches"],
+        "launches_per_prove": dense, "nondense_launches_per_prove": nondense}}), flush=True)
     prove["n6_l1_digests"] = small_prove()
     print(json.dumps({"prove": prove}), flush=True)
     print(json.dumps({"mxu": mxu_paths(F, launches)}), flush=True)

@@ -1,5 +1,6 @@
 // G1 point kernels for Hopper (sm_90a), on the group law of g1.cuh and,
-// for the general add and the accumulate, its team form in g1_team.cuh.
+// for every kernel the leader-mode prove launches, its team form in
+// g1_team.cuh.
 //
 // Replaces curves/pallas_g1.py:
 //   add_team_kernel      _add_kernel, op add (_point_call): a team of
@@ -8,15 +9,17 @@
 //                        one thread per point (neither is launched on the
 //                        leader-mode prove, so they stay one-thread
 //                        kernels on fmul);
-//   masked_op_kernel     _add_masked_kernel and _add_reset_kernel (the same
-//                        _point_call site): a mixed add under a per-lane
-//                        mask, one thread per point;
+//   masked_op_team_kernel _add_masked_kernel and _add_reset_kernel (the
+//                        same _point_call site): a mixed add under a
+//                        per-point mask, a team of kMaskedTeam lanes per
+//                        point;
 //   accumulate_team_kernel _add_reset_lazy_kernel with the lax.scan over
 //                        steps around it and the repair of flagged lanes
 //                        (primitives/msm.py _dense_bucket_sums): a team of
 //                        kScanTeam lanes per scan lane;
-//   scalar_mul_kernel    _scalar_mul_kernel: one thread per lane walks
-//                        its MSB-first double-and-add ladder.
+//   scalar_mul_team_kernel _scalar_mul_kernel: a team of kLadderTeam
+//                        lanes per lane walks its MSB-first double-and-add
+//                        ladder.
 // _horner_kernel and _bucket_serial_kernel are g1_chain.cu's.  The TPU's
 // VMEM tiling (lane padding, unroll) is not carried over; the
 // recurrences and their add order are.
@@ -25,12 +28,15 @@
 // Fq products per thread (588 32-bit multiplies each).  With one thread
 // a point on fmul (2.1 us a product in a one-thread chain) the general
 // add took about 0.05 ms at every lane count of the prove up to 8,192
-// (16 dependent products), and the accumulate's 8,192 lanes, about two
-// warps an SM, each walked `steps` mixed adds of 11 dependent products:
-// both 10 to 35 times their bound, held by the latency of one thread's
-// chain, not by the card's multiply rate.  The scalar ladder is bound by
-// the latency of its chain when it has few lanes: the dependent products
-// times the depth of one CIOS product in dependent multiply-adds times one
+// (16 dependent products), the accumulate's 8,192 lanes, about two warps
+// an SM, each walked `steps` mixed adds of 11 dependent products, and
+// the masked add took 0.3-0.4 ms on 65,542 points against a byte bound
+// of 0.014 ms: all held by the latency of one thread's chain, not by the
+// card's multiply rate.  The scalar ladder most of all: the prove
+// launches it on tens of lanes, so one thread's 256 doubles and about 128
+// adds, some 3,800 dependent products at 2.1 us, took 9.3 ms a launch on
+// one SM.  Its bound is that chain at the least time of one product: the
+// depth of one CIOS product in dependent multiply-adds times one
 // multiply-add's latency (imad_chain_kernel).
 //
 // What the team kernels do about it.  A team of lanes runs one point op
@@ -64,9 +70,30 @@
 //   padding and doublings apart from each other, which their own shuffle
 //   masks allow.  Gathering each base a step ahead, to overlap it with
 //   the add, was slower on an H100.  144 registers, no spill.
-// The output of each is bit-equal to the one-thread form's and to the
-// plain versions (curves/cuda_g1.py).  Writing only the bucket ends and
-// fusing the cross-lane scan of the accumulate are later work.
+// * masked_op_team_kernel: kMaskedTeam = 2 lanes a point, the mixed add
+//   in 6 rounds as in the accumulate.  Its launches cover a whole bucket
+//   grid, [W, C 2^c] points, 33,024 to 536,640 in the non-dense prove, of
+//   which each step masks 1 or 2 in a hundred: copying the others is most
+//   of the work, and there a 4-lane team was no faster in a probe on an
+//   H100, while on 65,542 points half masked it was slower.
+//   128 threads a block, neighbouring teams on neighbouring points, so the
+//   loads coalesce across teams; a team whose mask is 0 copies its operand.
+// * scalar_mul_team_kernel: kLadderTeam = 4 lanes a lane, so a double
+//   takes 3 rounds (levels 3, 3, 1) and a general add 5, where a 2-lane
+//   team would take 5 and 8: the ladder has few lanes, so the rounds of
+//   one team's chain are its time.  One warp (8 teams) a block, so that a
+//   launch of a thousand lanes still spreads over the SMs.  Fixed windows
+//   of kWindowBits = 4 bits over a table of 15 multiples of the point in
+//   shared memory (built in one double and 13 adds): 256 doubles and at
+//   most 64 adds a full-width scalar.  Bit by bit (256 doubles, about 128
+//   adds) the teams of a warp split on nearly every bit, so the warp ran
+//   the add at nearly every bit, 8 rounds a bit; a window's digit is 0 one
+//   time in 16, so a warp's teams add together.  In a probe on an H100 the
+//   windows were the faster at every shape of the prove.
+// The output of each is bit-equal to its plain version (curves/cuda_g1.py),
+// which follows the ladder's windows step for step.  Writing only the
+// bucket ends and fusing the cross-lane scan of the accumulate are later
+// work.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -79,7 +106,13 @@ constexpr int kThreads = 64;  // one-thread kernels: few threads per block sprea
 constexpr long long kSentinel = 0xFFFFFFFFll;  // key of padding entries
 constexpr int kAddTeam = 4;            // lanes a point of add_team_kernel
 constexpr int kScanTeam = 2;           // lanes a scan lane of accumulate_team_kernel
-constexpr int kTeamThreads = 128;      // threads a block of either
+constexpr int kMaskedTeam = 2;         // lanes a point of masked_op_team_kernel
+constexpr int kLadderTeam = 4;         // lanes a lane of scalar_mul_team_kernel
+constexpr int kTeamThreads = 128;      // threads a block of the team kernels but the ladder
+constexpr int kLadderThreads = 32;     // one warp a block: a ladder of few lanes spreads over the SMs
+constexpr int kWindowBits = 4;         // bits a window of the ladder (cuda_g1.LADDER_WINDOW)
+constexpr int kWindowSize = 1 << kWindowBits;
+static_assert(16 % kWindowBits == 0, "a window lies within one 16-bit scalar limb");
 constexpr unsigned kScanLanes = kTeamThreads / kScanTeam;
 constexpr unsigned kStageSteps = 64;             // accumulate steps staged at a time
 constexpr unsigned kStagePitch = kStageSteps + 1;  // odd: a warp's teams read different banks
@@ -122,24 +155,28 @@ __global__ void __launch_bounds__(kTeamThreads)
 
 // OP: 0 add_masked (out = mask ? a + b : a, the bucket accumulate step of
 // the non-dense MSM cores), 1 add_reset (out = mask ? a + b : b); b is
-// affine or infinity (mixed add).  A lane whose mask is 0 does no
-// arithmetic: it copies its operand, as the TPU's select would return it.
+// affine or infinity (mixed add).  One team of kMaskedTeam lanes per
+// point: where the mask is set the team runs team_add<true>; where it is
+// 0 the team does no arithmetic and copies its operand, as the TPU's
+// select would return it.  The mask is one byte a point, so a team never
+// splits on it; the teams of one warp may.
 template <int OP>
-__global__ void __launch_bounds__(kThreads)
-    masked_op_kernel(Coords a, Coords b, const uint8_t* __restrict__ mask, OutCoords out,
-                     unsigned m, G1Const c) {
-  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
+__global__ void __launch_bounds__(kTeamThreads)
+    masked_op_team_kernel(Coords a, Coords b, const uint8_t* __restrict__ mask, OutCoords out,
+                          unsigned m, G1Const c) {
+  const Team<kMaskedTeam> tm = Team<kMaskedTeam>::here();
+  const unsigned i = (blockIdx.x * blockDim.x + threadIdx.x) / kMaskedTeam;
+  if (i >= m) return;  // the whole team
   Pt p;
   if (mask[i]) {
     Pt q;
     load_point(a, i, p);
     load_point(b, i, q);
-    g1_add<true>(p, p, q, c);
+    team_add<true>(p, p, q, c, tm);
   } else {
     load_point(OP == 0 ? a : b, i, p);
   }
-  store_point(out, i, p);
+  team_store(out, i, p, tm);
 }
 
 // Entry e of the list as the accumulate stages it; `first` is set at a
@@ -206,24 +243,62 @@ __global__ void __launch_bounds__(kTeamThreads)
   if (tm.lane == 0 && rep) atomicAdd(repaired, rep);
 }
 
-// scalars: n_limbs 16-bit limbs per lane, standard form, least significant first.
-__global__ void __launch_bounds__(kThreads)
-    scalar_mul_kernel(Coords pts, const int32_t* __restrict__ scalars, int n_limbs, unsigned m,
-                      OutCoords out, G1Const c) {
-  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  Pt P, acc;
-  load_point(pts, i, P);
-  set_infinity(acc, c);
-  const int32_t* sc = scalars + (size_t)i * n_limbs;
-  for (int l = n_limbs - 1; l >= 0; --l) {
-    const uint32_t w = (uint32_t)sc[l];
-    for (int b = 15; b >= 0; --b) {
-      g1_double(acc, acc, c);
-      if ((w >> b) & 1u) g1_add<false>(acc, acc, P, c);
+// p into a team's slot in shared memory: lanes 0, 1 and 2 (mod W) write
+// x, y and z, as team_store does.
+template <int W>
+__device__ __forceinline__ void team_put(Pt& slot, const Pt& p, const Team<W>& tm) {
+  if (tm.lane == 0) fq_copy(slot.x, p.x);
+  if (tm.lane == 1 % W) fq_copy(slot.y, p.y);
+  if (tm.lane == 2 % W) fq_copy(slot.z, p.z);
+}
+
+// out[i] = scalar_i pts[i], one team of kLadderTeam lanes per lane, by
+// fixed windows of kWindowBits bits, MSB first, on the plain version's
+// schedule step for step: the team builds its table T_k = k P (T_1 = P,
+// T_2 = 2P, T_k = T_{k-1} + P) in shared memory, then for each window
+// doubles acc kWindowBits times (from infinity) and adds T_digit where
+// the window's digit is not 0.  scalars: n_limbs 16-bit limbs per lane,
+// standard form, least significant first.  Every lane of a team reads the
+// same scalar word, so a team never splits on a digit; the teams of one
+// warp may.  The bound of one block an SM lets ptxas take the registers
+// the kernel needs: without it ptxas held it to 168 and spilled.
+__global__ void __launch_bounds__(kLadderThreads, 1)
+    scalar_mul_team_kernel(Coords pts, const int32_t* __restrict__ scalars, int n_limbs,
+                           unsigned m, OutCoords out, G1Const c) {
+  constexpr int kTeams = kLadderThreads / kLadderTeam;
+  __shared__ Pt table[kTeams][kWindowSize];  // entry 0 unused
+  const Team<kLadderTeam> tm = Team<kLadderTeam>::here();
+  const unsigned t = threadIdx.x / kLadderTeam, i = blockIdx.x * kTeams + t;
+  if (i >= m) return;  // the whole team
+  Pt* tab = table[t];
+  {
+    Pt P, cur;
+    load_point(pts, i, P);
+    team_put(tab[1], P, tm);
+    team_double(cur, P, c, tm);
+    team_put(tab[2], cur, tm);
+#pragma unroll 1
+    for (int k = 3; k < kWindowSize; ++k) {
+      team_add<false>(cur, cur, P, c, tm);
+      team_put(tab[k], cur, tm);
     }
   }
-  store_point(out, i, acc);
+  __syncwarp(tm.mask);  // the table, from every lane of the team
+  Pt acc;
+  set_infinity(acc, c);
+  const int32_t* sc = scalars + (size_t)i * n_limbs;
+#pragma unroll 1
+  for (int l = n_limbs - 1; l >= 0; --l) {
+    const uint32_t w = (uint32_t)sc[l];
+#pragma unroll 1
+    for (int b = 16 - kWindowBits; b >= 0; b -= kWindowBits) {
+#pragma unroll 1
+      for (int d = 0; d < kWindowBits; ++d) team_double(acc, acc, c, tm);
+      const uint32_t digit = (w >> b) & (kWindowSize - 1u);
+      if (digit) team_add<false>(acc, acc, tab[digit], c, tm);
+    }
+  }
+  team_store(out, i, acc, tm);
 }
 
 // One thread runs n dependent 32x32->64 multiply-adds, c = lo(c) * y + c
@@ -252,8 +327,9 @@ __global__ void fq_mul_chain_kernel(const int32_t* a, int n, int32_t* out, Field
 
 unsigned blocks(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
-unsigned team_blocks(long long teams) {
-  return (unsigned)((teams * kAddTeam + kTeamThreads - 1) / kTeamThreads);
+// blocks of `threads` for `teams` teams of `width` lanes
+unsigned team_blocks(long long teams, int width, int threads = kTeamThreads) {
+  return (unsigned)((teams * width + threads - 1) / threads);
 }
 
 }  // namespace
@@ -272,7 +348,7 @@ extern "C" int sczk_g1_point_op(int op, const void* ax, const void* ay, const vo
   const G1Const c = consts_of(consts);
   auto s = static_cast<cudaStream_t>(stream);
   if (op == 0) {
-    add_team_kernel<<<team_blocks(m), kTeamThreads, 0, s>>>(a, b, o, (unsigned)m, c);
+    add_team_kernel<<<team_blocks(m, kAddTeam), kTeamThreads, 0, s>>>(a, b, o, (unsigned)m, c);
   } else if (op == 1) {
     point_op_kernel<1><<<blocks(m), kThreads, 0, s>>>(a, b, o, (unsigned)m, c);
   } else {
@@ -293,10 +369,11 @@ extern "C" int sczk_g1_masked_op(int op, const void* ax, const void* ay, const v
   const auto* mk = static_cast<const uint8_t*>(mask);
   const G1Const c = consts_of(consts);
   auto s = static_cast<cudaStream_t>(stream);
+  const unsigned nb = team_blocks(m, kMaskedTeam);
   if (op == 0) {
-    masked_op_kernel<0><<<blocks(m), kThreads, 0, s>>>(a, b, mk, o, (unsigned)m, c);
+    masked_op_team_kernel<0><<<nb, kTeamThreads, 0, s>>>(a, b, mk, o, (unsigned)m, c);
   } else {
-    masked_op_kernel<1><<<blocks(m), kThreads, 0, s>>>(a, b, mk, o, (unsigned)m, c);
+    masked_op_team_kernel<1><<<nb, kTeamThreads, 0, s>>>(a, b, mk, o, (unsigned)m, c);
   }
   return (int)cudaGetLastError();
 }
@@ -322,7 +399,8 @@ extern "C" int sczk_g1_scalar_mul(const void* px, const void* py, const void* pz
                                   const void* scalars, int n_limbs, int m, void* ox, void* oy,
                                   void* oz, const void* consts, void* stream) {
   if (m <= 0 || n_limbs <= 0) return (int)cudaErrorInvalidValue;
-  scalar_mul_kernel<<<blocks(m), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  scalar_mul_team_kernel<<<team_blocks(m, kLadderTeam, kLadderThreads), kLadderThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
       coords(px, py, pz), static_cast<const int32_t*>(scalars), n_limbs, (unsigned)m,
       out_coords(ox, oy, oz), consts_of(consts));
   return (int)cudaGetLastError();
@@ -355,9 +433,9 @@ extern "C" int sczk_g1_attrs(int which, int* out) {
       reinterpret_cast<const void*>(&point_op_kernel<1>),
       reinterpret_cast<const void*>(&point_op_kernel<2>),
       reinterpret_cast<const void*>(&accumulate_team_kernel),
-      reinterpret_cast<const void*>(&scalar_mul_kernel),
-      reinterpret_cast<const void*>(&masked_op_kernel<0>),
-      reinterpret_cast<const void*>(&masked_op_kernel<1>),
+      reinterpret_cast<const void*>(&scalar_mul_team_kernel),
+      reinterpret_cast<const void*>(&masked_op_team_kernel<0>),
+      reinterpret_cast<const void*>(&masked_op_team_kernel<1>),
   };
   if (which < 0 || which >= (int)(sizeof(fns) / sizeof(fns[0]))) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;

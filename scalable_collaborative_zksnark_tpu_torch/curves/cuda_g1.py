@@ -9,10 +9,10 @@ with the scan and repair around it in ``primitives/msm.py``
 ``_horner_kernel`` (``horner``); ``_bucket_serial_kernel``
 (``bucket_serial``).  The kernels are ``csrc/g1.cu`` on the group law of
 ``csrc/g1.cuh``, and ``csrc/g1_chain.cu`` (Horner, bucket-serial); the
-general ``add``, the accumulate and Horner run the same formulas by
-dependency levels on a team of lanes (``csrc/g1_team.cuh``), on the
-low-latency product of ``csrc/fq_chain.cuh``; see those files for the
-design and what bounds it.  Bucket-serial runs a segmented schedule
+general ``add``, the masked adds, the accumulate, the ladder and Horner
+run the same formulas by dependency levels on a team of lanes
+(``csrc/g1_team.cuh``), on the low-latency product of
+``csrc/fq_chain.cuh``; see those files for the design and what bounds it.  Bucket-serial runs a segmented schedule
 (``bucket_segments``), which its plain version follows step for step.
 
 A point is a tuple ``(x, y, z)`` of ``int32 [..., 24]`` Fq Montgomery
@@ -69,6 +69,7 @@ ATTR_KERNELS = ("add", "add_mixed", "double", "accumulate", "scalar_mul", "add_m
 CHAIN_ATTR_KERNELS = ("horner", "bucket_serial")
 
 MAX_ACCUMULATE_BASES = 1 << 29  # the accumulate stages a base index in 29 bits
+LADDER_WINDOW = 4  # bits a window of the ladder (csrc/g1.cu kWindowBits)
 
 SEGMENT_FILL_THREADS = 132 * 4 * 32
 """Threads that put four warps on each of the H100's 132 SMs: bucket-serial
@@ -220,19 +221,30 @@ def accumulate_plain(spec: FieldSpec, keys: torch.Tensor, pid: torch.Tensor, neg
 
 
 def scalar_mul_plain(spec: FieldSpec, pt: tuple, scalars: torch.Tensor) -> tuple:
-    """MSB-first double-and-add over standard-form 16-bit scalar limbs
-    (``Curve.scalar_mul``); ``pt`` and ``scalars`` share their batch shape."""
+    """pt * scalar over standard-form 16-bit scalar limbs (``Curve.scalar_mul``'s
+    value) by fixed windows of ``LADDER_WINDOW`` bits, MSB first, on the
+    kernel's schedule step for step: the table T_1 = P, T_2 = 2P, T_k =
+    T_{k-1} + P up to k = 15, then for each window four doublings of acc
+    (from infinity) and acc + T_digit where the digit is not 0; ``pt`` and
+    ``scalars`` share their batch shape."""
     shape = pt[0].shape[:-1]
     pt = tuple(a.reshape(-1, a.shape[-1]) for a in pt)
     w_all = scalars.reshape(-1, scalars.shape[-1])
+    table = [pt, double_plain(spec, pt)]
+    for _ in range(3, 1 << LADDER_WINDOW):
+        table.append(add_plain(spec, table[-1], pt)[0])
+    table = tuple(torch.stack(t) for t in zip(*table))  # [15, m, 24]: T_1 .. T_15
     acc = infinity(spec, (pt[0].shape[0],), pt[0].device)
     for limb in range(scalars.shape[-1] - 1, -1, -1):
         w = w_all[:, limb]
-        for b in range(15, -1, -1):
-            acc = double_plain(spec, acc)
-            idx = (((w >> b) & 1) > 0).nonzero(as_tuple=True)  # lanes that add, as the kernel
-            if idx[0].numel():
-                summed = add_plain(spec, tuple(a[idx] for a in acc), tuple(a[idx] for a in pt))[0]
+        for b in range(16 - LADDER_WINDOW, -1, -LADDER_WINDOW):
+            for _ in range(LADDER_WINDOW):
+                acc = double_plain(spec, acc)
+            digit = (w >> b) & ((1 << LADDER_WINDOW) - 1)
+            idx = (digit > 0).nonzero(as_tuple=True)[0]  # lanes that add, as the kernel
+            if idx.numel():
+                entry = tuple(a[digit[idx].long() - 1, idx] for a in table)
+                summed = add_plain(spec, tuple(a[idx] for a in acc), entry)[0]
                 for a, s in zip(acc, summed):
                     a[idx] = s
     return tuple(a.reshape(shape + a.shape[-1:]) for a in acc)
@@ -434,13 +446,16 @@ def _masked_op(wrapper, spec: FieldSpec, p1: tuple, p2: tuple, mask: torch.Tenso
 
 def add_masked(spec: FieldSpec, p1: tuple, p2: tuple, valid: torch.Tensor) -> tuple:
     """valid ? p1 + p2 : p1 per point, p2 affine or infinity (the non-dense
-    MSM's bucket step): kernel on CUDA, plain on the CPU."""
+    MSM's bucket step): on CUDA one launch, a team of 2 lanes a point
+    running the mixed add where ``valid`` is set and copying p1 where it
+    is not; plain on the CPU."""
     return _masked_op(add_masked, spec, p1, p2, valid)
 
 
 def add_reset(spec: FieldSpec, p1: tuple, p2: tuple, same: torch.Tensor) -> tuple:
-    """same ? p1 + p2 : p2 per point, p2 affine or infinity: kernel on
-    CUDA, plain on the CPU."""
+    """same ? p1 + p2 : p2 per point, p2 affine or infinity: on CUDA the
+    kernel of ``add_masked`` copying p2 where ``same`` is not set; plain
+    on the CPU."""
     return _masked_op(add_reset, spec, p1, p2, same)
 
 
@@ -506,7 +521,9 @@ def _launch_accumulate(spec, keys, pid, neg, bases, T, steps):
 
 def scalar_mul(spec: FieldSpec, pt: tuple, scalars: torch.Tensor) -> tuple:
     """pt * scalar per lane (standard-form 16-bit limbs [..., n]; batch
-    shapes broadcast): kernel on CUDA, plain on the CPU."""
+    shapes broadcast): on CUDA one launch, a team of 4 lanes a lane
+    walking the plain version's 4-bit windows over a 15-point table,
+    bit-equal to it; plain on the CPU."""
     pt, scalars = _broadcast_scalars(pt, scalars)
     if _on_cpu(*pt, scalars):
         return scalar_mul_plain(spec, pt, scalars)

@@ -1,5 +1,5 @@
-"""Point add, the accumulate, Horner, bucket-serial and the Fq product
-chain, timed on their own.
+"""Point add, the masked add, the scalar ladder, the accumulate, Horner,
+bucket-serial and the Fq product chain, timed on their own.
 
     python -m scalable_collaborative_zksnark_tpu_torch.scripts.chain_bench [--device cuda]
 
@@ -11,6 +11,17 @@ Prints one JSON object:
   (``torch.profiler``, every kernel the call launches; null on the CPU),
   and ``events``, the time between CUDA events around one call, which at
   a few lanes is the host's time for the call;
+* ``masked_ms``: ``cuda_g1.add_masked`` on seeded random points (Z != 1)
+  and affine ones under a seeded random mask, at each ``--masked`` item
+  ``M`` or ``M:F`` (M lanes, a share F of them masked, default 0.5;
+  default: the non-dense (16, 8) prove's four commonest lane counts at
+  their mean masked share, and 65,542 lanes half masked), ``device`` and
+  ``events`` as for ``add_ms``;
+* ``ladder_ms``: ``cuda_g1.scalar_mul`` on seeded random points (Z != 1)
+  and random scalars at each ``--ladder`` item ``M`` or ``MxL`` (M lanes
+  of L 16-bit limbs, default 16, the full width of Fr; default: the
+  (16, 8) prove's shapes, 14, 21 and 192 lanes, and 1,027),
+  ``device`` and ``events`` as for ``add_ms``;
 * ``accumulate_ms``: ``cuda_g1.accumulate`` on the call that an MSM of
   seeded bases and scalars makes, at each ``--accumulate`` shape
   (``device`` and ``events`` as for ``add_ms``; the wrapper's call also
@@ -55,6 +66,7 @@ import subprocess
 import time
 
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .. import bench, cuda_build
@@ -88,7 +100,8 @@ def _device_ms(fn, dev: torch.device, reps: int):
     """Device milliseconds a run of ``fn``: the own device time of every
     kernel and copy it launches over ``reps`` runs under ``torch.profiler``
     (after a warm-up), over ``reps``; None on the CPU or when the profiler
-    reports no device time."""
+    reports no device time.  Only events on the card count: a host-side op
+    reports its kernels' time as its own too."""
     if dev.type != "cuda":
         return None
     fn()
@@ -98,7 +111,7 @@ def _device_ms(fn, dev: torch.device, reps: int):
             fn()
         sync(dev)
     total = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-                for e in prof.key_averages())
+                for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
     return total / 1e3 / reps if total > 0 else None
 
 
@@ -181,28 +194,47 @@ def _card(dev: torch.device) -> str:
 
 
 ADD_LANES = (3, 96, 8192)
+# the non-dense (16, 8) prove's four commonest add_masked lane counts, each
+# with its calls' mean masked share, then 65,542 lanes half masked
+MASKED = ((107328, 0.0162), (165120, 0.0164), (33024, 0.0175), (536640, 0.0063), (65542, 0.5))
+# the (16, 8) prove's ladder shapes, then 1,027 lanes
+LADDERS = ((14, 16), (21, 16), (192, 16), (1027, 16))
 ACCUMULATE_CALLS = (("msm", 8192, 3), ("ragged", 4096, 3))
+
+
+def _timed(call, dev: torch.device, reps: int) -> dict:
+    return {"device": _device_ms(call, dev, reps), "events": _ms(call, dev, reps)}
 
 
 def run(device=DEFAULT, horner=((32, 3, 8), (43, 39, 6)), buckets=((33, 1677),),
         segments=(1, 2, 4, 8), reps: int = 10, prove_repeat: int = 5, sass: bool = False,
-        add_lanes=ADD_LANES, accumulate=ACCUMULATE_CALLS) -> dict:
+        add_lanes=ADD_LANES, accumulate=ACCUMULATE_CALLS, masked=MASKED,
+        ladders=LADDERS) -> dict:
     dev = resolve(device)
     curve = bls12_381_g1(dev)
     spec = curve.fq.spec
-    out = {"card": _card(dev), "add_ms": {}, "accumulate_ms": {}, "horner_ms": {},
-           "bucket_serial_ms": {}, "fq_chain_us": {}}
+    out = {"card": _card(dev), "add_ms": {}, "masked_ms": {}, "ladder_ms": {},
+           "accumulate_ms": {}, "horner_ms": {}, "bucket_serial_ms": {}, "fq_chain_us": {}}
     for k, m in enumerate(add_lanes):
         p1, p2 = _points(curve, (m,), 61 + 2 * k), _points(curve, (m,), 62 + 2 * k)
-        call = lambda: cuda_g1.add(spec, p1, p2)  # noqa: E731
-        out["add_ms"][str(m)] = {"device": _device_ms(call, dev, reps),
-                                 "events": _ms(call, dev, reps)}
+        out["add_ms"][str(m)] = _timed(lambda: cuda_g1.add(spec, p1, p2), dev, reps)
+    for k, (m, share) in enumerate(masked):
+        p1, p2 = _points(curve, (m,), 111 + 2 * k), rand_points_flat(curve, m, 112 + 2 * k)
+        gen = torch.Generator().manual_seed(113 + k)
+        mask = (torch.rand(m, generator=gen) < share).to(dev)
+        out["masked_ms"][f"{m}:{share}"] = _timed(
+            lambda: cuda_g1.add_masked(spec, p1, p2, mask), dev, reps)
+    for k, (m, L) in enumerate(ladders):
+        pts = _points(curve, (m,), 121 + k)
+        gen = torch.Generator().manual_seed(122 + k)
+        sc = torch.randint(0, 1 << 16, (m, L), generator=gen, dtype=torch.int32).to(dev)
+        out["ladder_ms"][f"{m}x{L}"] = _timed(lambda: cuda_g1.scalar_mul(spec, pts, sc), dev,
+                                               reps)
     for kind, n, batch in accumulate:
         args = accumulate_call(curve, kind, n, batch)
-        call = lambda: cuda_g1.accumulate(*args)  # noqa: E731
         out["accumulate_ms"][f"{kind}:{n},{batch}"] = {
             "shape": [args[1].shape[0], args[5], args[6]],
-            "device": _device_ms(call, dev, reps), "events": _ms(call, dev, reps)}
+            **_timed(lambda: cuda_g1.accumulate(*args), dev, reps)}
     for k, (W, C, c) in enumerate(horner):
         tot = _points(curve, (W, C), 81 + k)
         out["horner_ms"][f"{W},{C},{c}"] = _ms(lambda: cuda_g1.horner(spec, tot, c), dev, reps)
@@ -236,10 +268,20 @@ def run(device=DEFAULT, horner=((32, 3, 8), (43, 39, 6)), buckets=((33, 1677),),
 
 
 def _shapes(text: str, n: int):
-    shapes = [tuple(int(v) for v in s.split(",")) for s in text.split(";")]
+    shapes = [tuple(int(v) for v in s.split(",")) for s in filter(None, text.split(";"))]
     if any(len(s) != n for s in shapes):
         raise argparse.ArgumentTypeError(f"want shapes of {n} numbers separated by ';'")
     return shapes
+
+
+def _items(text: str, sep: str, default, kind=int) -> list:
+    """``A`` or ``A<sep>B`` items separated by ',' as (A, B), B ``default``
+    where it is left out (an empty text: none)."""
+    items = []
+    for item in filter(None, text.split(",")):
+        a, _, b = item.partition(sep)
+        items.append((int(a), kind(b) if b else default))
+    return items
 
 
 def _msm_calls(text: str):
@@ -264,6 +306,10 @@ def main(argv=None) -> int:
                     default=[1, 2, 4, 8])
     ap.add_argument("--add", type=lambda t: [int(v) for v in t.split(",") if v],
                     default=list(ADD_LANES), help="lane counts of point add, separated by ','")
+    ap.add_argument("--masked", type=lambda t: _items(t, ":", 0.5, float), default=list(MASKED),
+                    help="add_masked lanes M or M:F (a share F masked), separated by ','")
+    ap.add_argument("--ladder", type=lambda t: _items(t, "x", 16), default=list(LADDERS),
+                    help="ladder lanes M or MxL (L 16-bit scalar limbs), separated by ','")
     ap.add_argument("--accumulate", type=_msm_calls, default=list(ACCUMULATE_CALLS),
                     help="MSM calls whose accumulate is timed: msm:N,B or ragged:TOP,B, "
                          "separated by ';'")
@@ -274,7 +320,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     print(json.dumps(run(args.device, args.horner, args.bucket, args.segments, args.reps,
                          0 if args.no_prove else args.prove_repeat, args.sass, args.add,
-                         args.accumulate)), flush=True)
+                         args.accumulate, args.masked, args.ladder)), flush=True)
     return 0
 
 

@@ -79,7 +79,7 @@ def test_chain_kernels_match_plain_on_card(cuda):
 @pytest.mark.gpu
 def test_team_kernels_match_plain_on_card(cuda):
     """Point add (a team of 4 lanes a point) at 3, 96 and 8,192 lanes, with
-    the six edge lanes at 3 and 8,192, and the accumulate (a team of 4
+    the six edge lanes at 3 and 8,192, and the accumulate (a team of 2
     lanes a scan lane) on ``chip_smoke.accumulate_cases``: a forced
     x-collision, a warp whose teams diverge (resets, adds, cancels,
     padding and doublings at one step) and random keys over two staging
@@ -96,6 +96,26 @@ def test_team_kernels_match_plain_on_card(cuda):
         want, want_doubled = cuda_g1.accumulate.plain(spec, *args)
         assert doubled == want_doubled > 0, name
         assert all(torch.equal(a, b) for a, b in zip(out, want, strict=True)), name
+
+
+@pytest.mark.gpu
+def test_ladder_and_masked_teams_match_plain_on_card(cuda):
+    """The ladder (a team of 4 lanes a lane, 4-bit windows) on
+    ``chip_smoke.ladder_cases`` (a warp whose teams diverge, 2-limb
+    scalars) and the masked adds (a team of 2 lanes a point) on
+    ``chip_smoke.masked_cases`` over 4,096 points and the edge lanes; bit
+    for bit against their plain versions, one launch a call."""
+    C = bls12_381_g1(cuda)
+    spec = C.fq.spec
+    calls = [("scalar_mul", args) for _, args in chip_smoke.ladder_cases(C)]
+    for _, args in chip_smoke.masked_cases(C, 4096):
+        calls += [("add_masked", args), ("add_reset", args)]
+    for name, args in calls:
+        kern = getattr(cuda_g1, name)
+        before = kern.launches
+        out = kern(spec, *args)
+        assert kern.launches == before + 1
+        assert all(torch.equal(a, b) for a, b in zip(out, kern.plain(spec, *args), strict=True))
 
 
 @pytest.mark.gpu

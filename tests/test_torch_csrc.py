@@ -10,10 +10,12 @@ card sees the code:
   ``kernel<<<...>>>(args)`` launch is rewritten as a call: a typo in a
   kernel fails here, not only on the card;
 * the G1 team kernels of ``csrc/g1.cu`` and ``csrc/g1_chain.cu`` (point
-  ``add``, the accumulate, Horner, and bucket-serial beside them) run on
+  ``add``, the accumulate, the masked adds, the scalar ladder, Horner,
+  and bucket-serial beside them) run on
   an emulation of the card: each block's threads are host threads,
-  ``__syncthreads`` is a barrier of the block, ``__shfl_sync`` a barrier
-  and exchange among the lanes its mask names, and the PTX carry-flag
+  ``__syncthreads`` is a barrier of the block, ``__syncwarp`` one of the
+  lanes its mask names, ``__shfl_sync`` a barrier and exchange among
+  them, and the PTX carry-flag
   primitives of ``fq_chain.cuh`` are those of ``test_torch_fq_chain.py``
   with a carry flag per thread.  The C entries are called through
   ``ctypes`` on CPU tensors and held bit for bit against the plain
@@ -79,6 +81,7 @@ inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_S
 uint32_t __shfl_sync(unsigned mask, uint32_t v, int src, int width = 32);
 uint32_t __shfl_down_sync(unsigned mask, uint32_t v, unsigned delta, int width = 32);
 void __syncthreads();
+void __syncwarp(unsigned mask = 0xffffffffu);
 void* emu_dynamic_smem();
 template <class G, class B, class F>
 void emu_launch(G grid, B block, size_t smem, cudaStream_t stream, F kernel)
@@ -181,6 +184,8 @@ uint32_t __shfl_down_sync(unsigned mask, uint32_t v, unsigned delta, int width) 
 }
 
 void __syncthreads() { emu::block->sync->wait("__syncthreads"); }
+
+void __syncwarp(unsigned mask) { emu::team(mask).wait("a __syncwarp"); }
 
 void* emu_dynamic_smem() { return emu::block->smem.data(); }
 
@@ -353,6 +358,47 @@ def test_emulated_team_accumulate(emulated, curve, case):
     _assert_points_equal(scanned, want)
     assert int(rep) == doubled
     assert doubled > 0
+
+
+@pytest.mark.parametrize("case", ["diverging_warp", "short_scalars"])
+def test_emulated_team_ladder(emulated, curve, case):
+    """``scalar_mul_team_kernel`` against ``scalar_mul_plain`` on
+    ``chip_smoke.ladder_cases``: one warp of 4-lane teams on full-width
+    scalars that set its teams apart at every bit (0, 1, r - 1, a last add
+    that cancels, one that doubles, a base at infinity), and 2-limb
+    scalars over a full and a partial block."""
+    spec = curve.fq.spec
+    pts, sc = dict(chip_smoke.ladder_cases(curve))[case]
+    pts, sc = tuple(a.contiguous() for a in pts), sc.contiguous()
+    m, n_limbs = sc.shape
+    out = _new(spec, (m,))
+    assert emulated["g1"].sczk_g1_scalar_mul(*_ptrs(pts), sc.data_ptr(), n_limbs, m, *_ptrs(out),
+                                             _consts(spec), None) == 0
+    _assert_points_equal(out, cuda_g1.scalar_mul_plain(spec, pts, sc))
+
+
+@pytest.fixture(scope="module")
+def masked_cases(curve):
+    return dict(chip_smoke.masked_cases(curve, 64))
+
+
+@pytest.mark.parametrize("case", ["random", "zeros", "ones", "alternating"])
+def test_emulated_team_masked(emulated, curve, masked_cases, case):
+    """``masked_op_team_kernel`` (ops 0 ``add_masked`` and 1 ``add_reset``
+    of ``sczk_g1_masked_op``) against their plain versions on
+    ``chip_smoke.masked_cases``: 64 random points and the six edge lanes,
+    140 threads over two blocks, under a random mask (set on the edge
+    lanes) and masks of all 0s, all 1s and alternating."""
+    spec = curve.fq.spec
+    p1, a2, mask = masked_cases[case]
+    p1, a2 = (tuple(a.contiguous() for a in pt) for pt in (p1, a2))
+    mk = mask.to(torch.uint8).contiguous()
+    m = mask.shape[0]
+    for op, kern in enumerate((cuda_g1.add_masked, cuda_g1.add_reset)):
+        out = _new(spec, (m,))
+        assert emulated["g1"].sczk_g1_masked_op(op, *_ptrs(p1), *_ptrs(a2), mk.data_ptr(),
+                                                *_ptrs(out), m, _consts(spec), None) == 0
+        _assert_points_equal(out, kern.plain(spec, p1, a2, mask))
 
 
 def test_emulated_chain_kernels(emulated, curve):

@@ -285,17 +285,22 @@ def test_bucket_segments():
 def test_chain_bench_on_cpu(capsys):
     """``scripts/chain_bench.py`` at tiny shapes through the plain versions:
     one JSON object with a time per point-add lane count (host time only:
-    no device time on the CPU), per accumulate call (the one a ragged MSM
+    no device time on the CPU), per masked-add lane count and share, per
+    ladder lanes and limbs, per accumulate call (the one a ragged MSM
     over levels 8, 4, 2, 1 makes, with its shape), per Horner shape and
     per bucket shape and segment count, no product chain (a card-only
     probe) and no prove."""
     chain_bench.main(["--device", "cpu", "--horner", "3,2,2;2,1,1", "--bucket", "5,3",
                       "--segments", "1,2", "--reps", "1", "--no-prove", "--add", "3",
+                      "--masked", "5,4:0.25", "--ladder", "2x1",
                       "--accumulate", "ragged:8,1"])
     out = json.loads(capsys.readouterr().out)
     assert out["card"] == "cpu" and set(out["horner_ms"]) == {"3,2,2", "2,1,1"}
     assert set(out["add_ms"]) == {"3"} and out["add_ms"]["3"]["device"] is None
     assert out["add_ms"]["3"]["events"] > 0
+    assert set(out["masked_ms"]) == {"5:0.5", "4:0.25"} and set(out["ladder_ms"]) == {"2x1"}
+    for row in (*out["masked_ms"].values(), out["ladder_ms"]["2x1"]):
+        assert row["device"] is None and row["events"] > 0
     acc = out["accumulate_ms"]["ragged:8,1"]
     E, T, steps = acc["shape"]
     assert acc["events"] > 0 and acc["device"] is None and 0 < E <= T * steps < E + T

@@ -13,7 +13,7 @@ import chip_smoke
 from scalable_collaborative_zksnark_tpu_torch import bench, convert, cuda_build
 from scalable_collaborative_zksnark_tpu_torch.curves import cuda_g1
 from scalable_collaborative_zksnark_tpu_torch.curves import g1 as g1_module
-from scalable_collaborative_zksnark_tpu_torch.curves.g1 import PointJ, bls12_381_g1
+from scalable_collaborative_zksnark_tpu_torch.curves.g1 import PointJ, bls12_381_g1, map_points
 from scalable_collaborative_zksnark_tpu_torch.examples import bench_micro, common
 from scalable_collaborative_zksnark_tpu_torch.examples import sumcheck as example
 from scalable_collaborative_zksnark_tpu_torch.fields import cuda_fr, mxu
@@ -192,6 +192,56 @@ def test_chip_smoke_replays_main_path_calls():
     name, (spec, a, b), _ = next(c for c in calls if c[0] == "fr_mul")
     with pytest.raises(AssertionError, match="fr_mul"):
         chip_smoke.replay([(name, (spec, a, b), cuda_fr.add(spec, a, b))])
+
+
+def test_chip_smoke_ladder_and_masked_shapes():
+    """chip_smoke.py's shape keys of a ladder call (lanes after broadcast,
+    scalar limbs) and of an add_masked call (lanes, masked lanes), its
+    ladder bound (the cheaper of double-and-add, which short scalars take,
+    and the 4-bit windows, which a full-width scalar of all ones takes) and
+    its random ladder scalars."""
+    C = bls12_381_g1("cpu")
+    P = C.from_affine_ints([None, None, None])
+    sc = torch.tensor([[1, 0], [3, 1]], dtype=torch.int32)
+    assert chip_smoke._call_shape("g1_scalar_mul", (None, map_points(lambda a: a[:1], P),
+                                                    sc)) == (2, 2)
+    mask = torch.tensor([True, False, True])
+    assert chip_smoke._call_shape("g1_add_masked", (None, P, P, mask)) == (3, 2)
+    bound = chip_smoke._ladder_bound(sc, int_rate=1e30, lat_ms=1.0)
+    assert bound == (32 * 3 + 2 * 5, "operations", "dependent-product chain")
+    products = 2 * 32 * 7 + 2 * 16
+    ops_ms = chip_smoke._ladder_bound(sc, int_rate=1e3, lat_ms=0.0)[0]
+    assert ops_ms == products * chip_smoke.FQ_MULS
+    ones = torch.full((1, 16), 0xFFFF, dtype=torch.int32)  # 64 non-zero windows
+    assert chip_smoke._ladder_bound(ones, int_rate=1e30, lat_ms=1.0)[0] == 256 * 3 + 3 + 76 * 5
+    ops_ms = chip_smoke._ladder_bound(ones, int_rate=1e3, lat_ms=0.0)[0]
+    assert ops_ms == (256 * 7 + 7 + 76 * 16) * chip_smoke.FQ_MULS
+    full, short = chip_smoke.ladder_scalars(C, 3, C.fr.L, 1), chip_smoke.ladder_scalars(C, 3, 2, 1)
+    assert full.shape == (3, C.fr.L) and short.shape == (3, 2)
+    assert all(int(v) < C.fr.p for v in C.fr.array_to_ints(C.fr.encode(full)))
+    assert int(short.min()) >= 0 and int(short.max()) < 1 << 16
+
+
+def test_chip_smoke_counts_device_time_once():
+    """chip_smoke.py's profile sums keep only what ran on the card: a host
+    op such as ``aten::index`` reports its gather kernel's device time as
+    its own too, and a ``timed`` span's range on the card the time of the
+    kernels in it, and counting them doubled it."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    def event(key, device_type, us, span=False):
+        return SimpleNamespace(key=key, device_type=device_type, self_device_time_total=us,
+                               count=1, is_user_annotation=span)
+    events = [event("aten::index", DeviceType.CPU, 7.0),
+              event("Wire_identity", DeviceType.CUDA, 9.0, span=True),
+              event("vectorized_gather_kernel", DeviceType.CUDA, 7.0),
+              event("masked_op_team_kernel<0>", DeviceType.CUDA, 2.0),
+              event("idle", DeviceType.CUDA, 0.0)]
+    prof = SimpleNamespace(key_averages=lambda: events)
+    assert [e.key for e in chip_smoke._device_events(prof)] == ["vectorized_gather_kernel",
+                                                               "masked_op_team_kernel<0>"]
 
 
 def test_chip_smoke_samples_loop_ends():
