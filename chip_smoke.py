@@ -10,7 +10,12 @@ Phases (any failure raises and exits non-zero):
    in parallel);
 2. hold each kernel (Fr mul/add/sub, the Fq instances, the limb-major
    and tiled Fr products on 2^20 elements, also against Fr mul after the
-   layout transform; the sumcheck fold phase; the G1 point ops on 2^16
+   layout transform; the sumcheck fold phase at every table shape the
+   (16, 8) prove folds, M = 2 and 4, every cluster size, head rounds and
+   [1, 2^21] (its own plan of launches each), on tables and challenges holding 0, 1 and p - 1, timed
+   (events and device time) at [6, 2^13], [1, 2^21] and [1, 2^25]; the
+   carry-chain Fr product against Fr mul on 2^16 pairs and edge values,
+   with its one-thread chain latency beside fmul<8>'s; the G1 point ops on 2^16
    points and an edge set, ``add_masked`` and ``add_reset`` there under a
    random mask, masks of all 0s, all 1s and alternating, the scalar ladder
    on 1,024 full scalars and 0, 1, r - 1, on a warp whose teams diverge
@@ -45,7 +50,9 @@ Phases (any failure raises and exits non-zero):
    the bench entry (setup, warm-up, three synchronised proves, the split
    by span), then one prove in each MSM configuration with the counts
    set to 0 just before it and read just after; each prove's canonical
-   digest and comm against the JAX-made pins; the non-dense prove's first
+   digest and comm against the JAX-made pins; every phase call of the
+   dense prove replayed through the plain version (one launch a call, at
+   most 16 a prove); the non-dense prove's first
    and last ``add_masked`` step of every bucket loop replayed through the
    plain version; one more prove in each MSM configuration under
    ``torch.profiler`` (device time by kernel, each team kernel's, the
@@ -55,7 +62,9 @@ Phases (any failure raises and exits non-zero):
    at 3 and 8,192, and timed at the four most frequent; the ladder held
    and timed at every shape it saw) and one non-dense prove whose
    ``add_masked`` lane counts are kept (held and timed at the four most
-   frequent); the dense
+   frequent); one dense prove whose Fr and Fq mul/add/sub operand shapes are
+   kept (each (field, op)'s commonest shape held and timed, device time a
+   launch beside its bound there); the dense
    prove must launch point add 854, the accumulate 15, Horner 15,
    bucket-serial 12 and the ladder 3 times, the non-dense one
    ``add_masked`` 1,755 and the ladder 3, the SRS bases the ladder 6; the (6, 1) prove in both
@@ -239,6 +248,10 @@ PROVE_G1_LAUNCHES = {"g1_add": 854, "g1_accumulate": 15, "g1_horner": 15, "g1_bu
 # the ladders of the SRS bases' set-up
 PROVE_NONDENSE_G1_LAUNCHES = {"g1_add_masked": 1755, "g1_scalar_mul": 3}
 SRS_LADDERS = 6
+# the most phase launches one (16, 8) prove may make: one a call and two
+# head rounds for its 2^15 table, 9 (116 when the kernel took two launches
+# a round)
+PROVE_PHASE_LAUNCHES_MAX = 16
 # the names the profiler gives the team kernels of g1.cu
 ADD_KERNEL, ACCUMULATE_KERNEL = "add_team_kernel", "accumulate_team_kernel"
 LADDER_KERNEL, MASKED_KERNEL = "scalar_mul_team_kernel", "masked_op_team_kernel"
@@ -267,13 +280,17 @@ def _ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def _device_ms(fn, tag: str, reps: int = 10, sessions: int = 3):
+def _device_ms(fn, tag: str, reps: int = 10, sessions: int = 3, launches_a_call: int = 0):
     """Mean device milliseconds of the kernels whose name holds ``tag``
     over ``reps`` runs of ``fn`` under ``torch.profiler`` (after one
-    warm-up run): the kernel's own time where the host's time per call
-    exceeds it, which events around the call would measure instead.  A
-    session around a few launches sometimes reports none of them, so up
-    to ``sessions`` are tried; None (not measured) when none reports one."""
+    warm-up run), a launch (or, given ``launches_a_call``, a run of
+    ``fn``, all its launches together): the kernel's own time where the
+    host's time per call exceeds it, which events around the call would
+    measure instead.  A session sometimes drops launches, so up to
+    ``sessions`` are tried: for a launch's time, the first that reports
+    any; for a run's, the first that reports every launch of the ``reps``
+    runs (one that dropped some would read too fast).  None (not
+    measured) when none qualifies."""
     fn()
     torch.cuda.synchronize()
     for _ in range(sessions):
@@ -282,8 +299,14 @@ def _device_ms(fn, tag: str, reps: int = 10, sessions: int = 3):
                 fn()
             torch.cuda.synchronize()
         events = [e for e in _device_events(prof) if tag in e.key]
-        if events:
-            return sum(_self_device_us(e) for e in events) / 1e3 / sum(e.count for e in events)
+        count = sum(e.count for e in events)
+        if launches_a_call and count != reps * launches_a_call:
+            print(f"device time of {tag}: a profile session held {count} of "
+                  f"{reps * launches_a_call} launches", file=sys.stderr)
+            continue
+        if count:
+            per = reps if launches_a_call else count
+            return sum(_self_device_us(e) for e in events) / 1e3 / per
     return None
 
 
@@ -444,31 +467,99 @@ def _phase_inputs(F, B: int, M: int):
     return F.random((B, M), 201), F.random((B, M), 202), F.random((M.bit_length() + 3,), 203)
 
 
-def check_phase(F, shapes) -> int:
-    """Max |kernel - plain| over every output limb (0, or it raises)."""
-    for B, M in shapes:
+# the tables the (16, 8) prove folds ([B, M]: the gate identity and its
+# phase 2, wire 2.c (2^15: two head rounds) and its phase 2, the zerocheck
+# z3 and its leader fold, the tree top), [1, 2^13] and [3, 2^10], M = 2 and
+# 4, a cluster of each size (K = 1, 2, 4, 8 at M = 128 .. 1024) and the
+# envelope's [1, 2^21] (eight head rounds)
+PHASE_CHECKS = ((6, 1 << 13), (6, 8), (1, 1 << 15), (1, 8), (3, 1 << 12), (3, 64),
+                (1, 1 << 13), (3, 1 << 10), (2, 2), (2, 4), (2, 128), (2, 256), (2, 512),
+                (2, 1024), (1, 1 << 21))
+# the phase's shapes timed against the parent's figures (PERF.md)
+PHASE_TIMED = ((6, 1 << 13), (1, 1 << 21), (1, 1 << 25))
+PHASE_KERNELS = "phase_"  # phase_cluster_kernel and phase_head_kernel
+
+
+def check_phase(F, cases=PHASE_CHECKS) -> tuple[int, list]:
+    """The phase kernel against its plain version, every output limb, at
+    each [B, M] of ``cases`` on random tables with 0, 1 and p - 1 in the
+    first slot and among the challenges, with the launches its plan (K,
+    head rounds) makes; returns (largest difference, [B, M, K, head] of
+    each case) or raises."""
+    edge = F.array_from_ints([0, 1, F.p - 1])
+    held = []
+    for B, M in cases:
         f, g, ch = _phase_inputs(F, B, M)
+        n = min(M, 3)
+        f[0, :n], g[0, -n:], ch[2:5] = edge[:n], edge[-n:], edge
+        before = cuda_sumcheck.product_phase.launches
         km, kf, kg = cuda_sumcheck.product_phase(F, f, g, ch, 2)
+        launches = cuda_sumcheck.product_phase.launches - before
         pm, pf, pg = cuda_sumcheck.product_phase_plain(F.spec, f, g, ch, 2)
         torch.cuda.synchronize()
-        for x, y in zip(km + [kf, kg], pm + [pf, pg]):
-            err = _max_abs_err(x, y)
-            if err:
-                raise AssertionError(f"phase B={B} M={M}: kernel differs from plain by {err}")
-    return 0
+        K, head = cuda_sumcheck.plan(M)
+        _equal(f"phase B={B} M={M} K={K} head={head}", km + [kf, kg], pm + [pf, pg])
+        if launches != head + 1:
+            raise AssertionError(f"phase B={B} M={M}: {launches} launches, want {head + 1}")
+        held.append([B, M, K, head])
+    return 0, held
 
 
-def time_phase(F, B: int, M: int, int_rate: float, plain: bool = True) -> dict:
-    f, g, ch = _phase_inputs(F, B, M)
+def phase_bound(F, B: int, M: int, int_rate: float, imad_ns: float) -> dict:
+    """The phase's least time: the larger of its bytes (both tables read
+    once, messages and finals written once) over HBM rate, its products
+    (5 a pair and round, B (M - 1) pairs) over the integer rate, and its
+    chain: R rounds of one product's dependent multiply-adds
+    (``cios_depth(8)``) at one IMAD.WIDE's measured latency."""
     R = M.bit_length() - 1
     out_bytes = B * (R * 3 + 2) * F.L * 4
-    bound, by = _bound_ms(2 * B * M * F.L * 4 + out_bytes,
-                          B * (M - 1) * 5 * _mont_muls(F.spec.num_words), int_rate)
-    row = {"shape": [B, M, F.L], "ms": _ms(lambda: cuda_sumcheck.product_phase(F, f, g, ch, 0)),
-           "bound_ms": bound, "bound_by": by, "library_ms": None}
+    t_bytes = (2 * B * M * F.L * 4 + out_bytes) / H100_BYTES_PER_S * 1e3
+    t_ops = B * (M - 1) * 5 * _mont_muls(F.spec.num_words) / int_rate * 1e3
+    t_chain = R * cios_depth(F.spec.num_words) * imad_ns * 1e-6
+    bound = max(t_bytes, t_ops, t_chain)
+    by = "bytes" if bound == t_bytes else "operations"
+    return {"bound_ms": bound, "bound_by": by,
+            "bound_kind": "dependent-product chain" if bound == t_chain else "throughput",
+            "bytes_ms": t_bytes, "operations_ms": t_ops, "chain_ms": t_chain}
+
+
+def time_phase(F, B: int, M: int, int_rate: float, imad_ns: float, plain: bool = True) -> dict:
+    """Events around one wrapper call and the device time of all its
+    launches (``torch.profiler``), beside the bound; the plain version's
+    events time where ``plain``."""
+    f, g, ch = _phase_inputs(F, B, M)
+    run = lambda: cuda_sumcheck.product_phase(F, f, g, ch, 0)  # noqa: E731
+    K, head = cuda_sumcheck.plan(M)
+    device = _device_ms(run, PHASE_KERNELS, launches_a_call=head + 1)
+    row = {"shape": [B, M, F.L], "ms": _ms(run),
+           "device_ms": "not measured" if device is None else device,
+           "cluster": K, "head_rounds": head, "launches_a_call": head + 1,
+           "smem_bytes": cuda_sumcheck.smem_bytes(M >> head, K),
+           **phase_bound(F, B, M, int_rate, imad_ns), "library_ms": None}
     if plain:
         row["plain_ms"] = _ms(lambda: cuda_sumcheck.product_phase_plain(F.spec, f, g, ch, 0))
     return row
+
+
+def fr_chain(F) -> dict:
+    """The carry-chain Fr product the phase folds with against fmul<8>
+    (``cuda_fr.mul``) on 2^16 random pairs and every pair of 0, 1, r - 1,
+    R mod r, bit for bit; both products' time in a one-thread chain of
+    dependent products (checked against host integers)."""
+    edge = F.array_from_ints([0, 1, F.p - 1, F.spec.r % F.p])
+    a = torch.cat([F.random((1 << 16,), 81), edge.repeat_interleave(4, dim=0)])
+    b = torch.cat([F.random((1 << 16,), 82), edge.repeat(4, 1)])
+    _equal("fr_mul_cc against fmul<8>", cuda_sumcheck.fr_mul_cc(F.spec, a, b),
+           cuda_fr.mul(F.spec, a, b))
+    xy = F.random((2,), 83)
+    x, y = (int(v) for v in F.array_to_ints(xy))
+    out = {"fr_mul_cc_held_on": a.shape[0]}
+    for cc, name in ((False, "fr_product_fmul_chain_us"), (True, "fr_product_cc_chain_us")):
+        probe = lambda k, cc=cc: cuda_sumcheck.fr_mul_chain(F.spec, xy, k, cc)  # noqa: E731
+        if int(F.array_to_ints(probe(5))) != x * pow(y, 5, F.p) % F.p:
+            raise AssertionError(f"fr_mul_chain (cc={cc}): wrong product")
+        out[name] = _chain_step_ms(probe, 1 << 16) * 1e3
+    return out
 
 
 def cios_depth(words: int) -> int:
@@ -978,6 +1069,34 @@ class _Recorder:
         return getattr(self._module, name)
 
 
+def _snapshot(x):
+    """``x`` as it is now: tensors cloned, lists and tuples copied (a caller
+    may append to the list of messages a phase returns, as
+    ``sumcheck_product`` does, or write into a tensor later)."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_snapshot(a) for a in x)
+    return x
+
+
+def _keep_snapshot(calls: list, entry):
+    calls.append(_snapshot(entry))
+
+
+@contextlib.contextmanager
+def phase_recording():
+    """Keep every call of the phase kernel's wrapper inside the block, its
+    operands and results as they were at the call."""
+    calls = []
+    sumcheck_module.cuda_sumcheck = _Recorder(cuda_sumcheck, "sumcheck_", ("product_phase",), calls,
+                                              keep=_keep_snapshot)
+    try:
+        yield calls
+    finally:
+        sumcheck_module.cuda_sumcheck = cuda_sumcheck
+
+
 @contextlib.contextmanager
 def recording():
     """Keep every field-, phase- and G1-kernel call the port makes inside
@@ -985,7 +1104,8 @@ def recording():
     and the MSM reach the kernels only through these module references)."""
     calls = []
     fr_module.cuda_fr = _Recorder(cuda_fr, "fr_", ("mul", "add", "sub"), calls)
-    sumcheck_module.cuda_sumcheck = _Recorder(cuda_sumcheck, "sumcheck_", ("product_phase",), calls)
+    sumcheck_module.cuda_sumcheck = _Recorder(cuda_sumcheck, "sumcheck_", ("product_phase",), calls,
+                                              keep=_keep_snapshot)
     g1_module.cuda_g1 = msm_module.cuda_g1 = _Recorder(cuda_g1, "g1_", G1_WRAPPERS, calls)
     try:
         yield calls
@@ -1121,7 +1241,7 @@ def prove_phase(launches: dict, replayed: dict, int_rate: float, lat_ms: float) 
     _check_pin(f"prove_n{n}_l{l}", int(report["digest"], 16))
     for dense in (True, False):
         key = "prove" if dense else "prove_nondense"
-        with msm_config(dense), (contextlib.nullcontext([]) if dense else sampling_masked()) as kept:
+        with msm_config(dense), (phase_recording() if dense else sampling_masked()) as kept:
             net.reset_comm()
             _reset_counts()
             t0 = time.perf_counter()
@@ -1133,6 +1253,18 @@ def prove_phase(launches: dict, replayed: dict, int_rate: float, lat_ms: float) 
         _check_pin(f"prove_n{n}_l{l}", proof_digest(pk.curve, out))
         report[f"{key}_launches"] = {k: v for k, v in launches[key].items() if v}
         del out
+        if dense:  # every phase call of the prove, held against the plain version
+            replayed["prove"] = replay(kept)[0]
+            phase_calls = replayed["prove"]["sumcheck_product_phase"]
+            phase_launches = launches["prove"]["sumcheck_product_phase"]
+            planned = sum(cuda_sumcheck.plan(args[1].shape[-2])[1] + 1 for _, args, _ in kept)
+            if phase_launches != planned or phase_launches > PROVE_PHASE_LAUNCHES_MAX:
+                raise AssertionError(f"the prove made {phase_calls} phase calls in "
+                                     f"{phase_launches} launches (planned {planned}, at most "
+                                     f"{PROVE_PHASE_LAUNCHES_MAX})")
+            report["phase_shapes"] = sorted(collections.Counter(
+                tuple(args[1].shape[:-1]) for _, args, _ in kept).items())
+            report["phase_calls_replayed"] = phase_calls
     replayed["prove_nondense"], errs = replay(kept)
     report["add_masked_steps_replayed"] = len(kept)
     report["add_masked_replay_max_abs_err"] = errs["g1_add_masked"]
@@ -1141,6 +1273,7 @@ def prove_phase(launches: dict, replayed: dict, int_rate: float, lat_ms: float) 
     report.update(mxu_prove(pk, net, n, launches))
     report["shapes"] = prove_shapes(pk, net, n, int_rate, lat_ms)
     report["shapes_nondense"] = nondense_shapes(pk, net, n, int_rate, lat_ms)
+    report.update(elementwise_shapes(pk, net, n, int_rate))
     report["profile"] = profile_prove(pk, net, n)
     report["profile_nondense"] = profile_prove(pk, net, n, dense=False)
     del pk
@@ -1200,21 +1333,29 @@ def check_add_lanes(curve, lanes) -> list:
     """Point ``add`` against its plain version at each lane count of
     ``lanes`` on random points (Z != 1), and with the six edge lanes of
     ``_edge_points`` at 3 lanes (two calls) and at 8,192 (the last six of
-    8,192); returns the cases held."""
+    8,192), one launch a call (making the random points launches more);
+    returns the cases held."""
     spec = curve.fq.spec
     cases = []
+
+    def held(name, a, b):
+        before = cuda_g1.add.launches
+        got = cuda_g1.add(spec, a, b)
+        if cuda_g1.add.launches != before + 1:
+            raise AssertionError(f"{name}: {cuda_g1.add.launches - before} launches, want 1")
+        _equal(name, got, cuda_g1.add.plain(spec, a, b))
+
     for m in sorted(set(lanes)):
         p1 = curve.double(rand_points_flat(curve, m, 72))
         p2 = curve.double(rand_points_flat(curve, m, 73))
-        _equal(f"g1 add at {m} lanes", cuda_g1.add(spec, p1, p2), cuda_g1.add.plain(spec, p1, p2))
+        held(f"g1 add at {m} lanes", p1, p2)
         cases.append(m)
     P = curve.double(rand_points_flat(curve, 8186, 74))
     Q = curve.double(rand_points_flat(curve, 8186, 75))
     p1, p2 = _edge_points(curve, P, Q)
     for lo, hi in ((8186, 8189), (8189, 8192), (0, 8192)):
         a, b = (map_points(lambda x: x[lo:hi], pt) for pt in (p1, p2))
-        _equal(f"g1 add at {hi - lo} lanes with edge lanes", cuda_g1.add(spec, a, b),
-               cuda_g1.add.plain(spec, a, b))
+        held(f"g1 add at {hi - lo} lanes with edge lanes", a, b)
         cases.append(f"{hi - lo} with edge lanes")
     return cases
 
@@ -1282,6 +1423,48 @@ def prove_shapes(pk, net, n: int, int_rate: float, lat_ms: float) -> dict:
             "bucket_serial_shapes": sorted(hist["g1_bucket_serial"].items()),
             "ladder_shapes": sorted(hist["g1_scalar_mul"].items()),
             "ladder_at_prove_shapes": ladder_rows}
+
+
+def elementwise_shapes(pk, net, n: int, int_rate: float) -> dict:
+    """One dense prove with the operand shapes of every Fr and Fq ``mul``,
+    ``add`` and ``sub`` call kept (the calls themselves are not); then each
+    (field, op)'s three commonest shapes held against the plain version and
+    timed on random operands of those shapes: the elementwise kernel's
+    device time a launch beside its bound there (each operand read once,
+    the result written once; 4N^2 + N multiplies an element for ``mul``)."""
+    calls = []
+
+    def keep(kept, entry):
+        name, (spec, a, b), _ = entry
+        kept.append((spec.name, name[3:], tuple(a.shape[:-1]), tuple(b.shape[:-1])))
+    fr_module.cuda_fr = _Recorder(cuda_fr, "fr_", ("mul", "add", "sub"), calls, keep=keep)
+    try:
+        with msm_config(True):
+            dhyperplonk(n, pk, net)
+            torch.cuda.synchronize()
+    finally:
+        fr_module.cuda_fr = cuda_fr
+    hist = collections.Counter(calls)
+    rows = []
+    common = [(k, v) for fo in sorted({c[:2] for c in calls})
+              for k, v in collections.Counter({k: v for k, v in hist.items()
+                                               if k[:2] == fo}).most_common(3)]
+    for (field, op, sa, sb), count in common:
+        F = get_field(field)
+        a, b = F.random(sa, 91).contiguous(), F.random(sb, 92).contiguous()
+        kern = getattr(cuda_fr, op)
+        out = kern(F.spec, a, b)
+        _equal(f"{field} {op} at {sa} x {sb}", out, getattr(cuda_fr, f"{op}_plain")(F.spec, a, b))
+        m = out.shape[:-1].numel()
+        muls = m * _mont_muls(F.spec.num_words) if op == "mul" else 0
+        bound, by = _bound_ms((a.numel() + b.numel() + out.numel()) * 4, muls, int_rate)
+        device = _device_ms(lambda: kern(F.spec, a, b), "binary_kernel")
+        rows.append({"field": field, "op": op, "shape": [list(sa), list(sb)],
+                     "calls_at_shape": count,
+                     "calls": sum(v for k, v in hist.items() if k[:2] == (field, op)),
+                     "device_ms": "not measured" if device is None else device,
+                     "bound_ms": bound, "bound_by": by})
+    return {"elementwise_at_commonest_shapes": rows}
 
 
 def ladder_scalars(curve, m: int, L: int, seed: int) -> torch.Tensor:
@@ -1433,15 +1616,18 @@ def main() -> int:
     fr_rows = check_elementwise(F, 1 << 20, int_rate)
     strided_rows = check_strided(F, int_rate)
     fq_rows = check_elementwise(Fq, 1 << 20, int_rate)
-    phase_err = check_phase(F, [(B, M) for B in (1, 6) for M in (2, 128, 1 << 13)])
-    phase_row = dict(time_phase(F, 6, 1 << 13, int_rate), max_abs_err=phase_err)
-    phase_big = [time_phase(F, 1, 1 << k, int_rate, plain=False) for k in (21, 25)]
     print(json.dumps({"fq_instances": fq_rows}), flush=True)
-    print(json.dumps({"phase_large": phase_big}), flush=True)
-
-    # G1 kernels against their plain versions (phase 2, continued)
     curve = bls12_381_g1()
     lat_ms, chain_diag = chain_latency(curve)
+    imad_ns = chain_diag["imad_wide_latency_ns"]
+    phase_err, phase_held = check_phase(F)
+    phase_rows = [time_phase(F, B, M, int_rate, imad_ns, plain=B * M <= 1 << 16)
+                  for B, M in PHASE_TIMED]
+    phase_row = dict(phase_rows[0], max_abs_err=phase_err)
+    print(json.dumps({"phase_held": phase_held, "phase_timed": phase_rows, **fr_chain(F)}),
+          flush=True)
+
+    # G1 kernels against their plain versions (phase 2, continued)
     g1_rows, collision = check_g1(curve, int_rate, lat_ms)
     print(json.dumps({**chain_diag, **collision, **check_chain(curve)}), flush=True)
 
@@ -1456,7 +1642,7 @@ def main() -> int:
     _check_pin("gate", limb_digest(proof))
     replayed = {"gate_identity": replay(calls)[0]}
     del calls
-    for name in ("fr_mul", "fr_add", "fr_sub"):
+    for name in ("fr_mul", "fr_add", "fr_sub", "sumcheck_product_phase"):
         if replayed["gate_identity"].get(name, 0) != launches["gate_identity"][name]:
             raise AssertionError(f"{name}: {launches['gate_identity'][name]} launches, "
                                  f"{replayed['gate_identity'].get(name, 0)} calls replayed")
@@ -1585,8 +1771,8 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the main paths: {zero}")
     rows = {f"fr_{r['op']}": dict(r, **cuda_fr.attributes(F.spec, r["op"])) for r in fr_rows}
     phase_attrs = cuda_sumcheck.attributes()
-    rows["sumcheck_product_phase"] = dict(phase_row, **phase_attrs["round"],
-                                          partial_reduce=phase_attrs["partial_reduce"])
+    rows["sumcheck_product_phase"] = dict(phase_row, **phase_attrs["cluster"],
+                                          head_kernel=phase_attrs["head"])
     rows.update(g1_rows)
     rows.update(strided_rows)
     kernels = []
@@ -1605,6 +1791,9 @@ def main() -> int:
             row["bound_kind"] = r["bound_kind"]
         if "device_ms" in r:  # the kernel's own time where events also hold the host's
             row["device_ms"] = r["device_ms"]
+        for key in ("cluster", "smem_bytes", "head_kernel"):  # the phase kernel's launch
+            if key in r:
+                row[key] = r[key]
         if name in OFF_PATH:
             row["note"] = OFF_PATH[name]
         kernels.append(row)

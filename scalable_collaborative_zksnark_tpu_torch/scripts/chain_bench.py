@@ -40,6 +40,14 @@ Prints one JSON object:
   the buckets, with each of ``--segments``;
 * ``fq_chain_us``: one Fq product in a one-thread chain, ``fr.cuh``'s
   ``fmul`` and, where the package has it, ``fq_chain.cuh``'s product;
+* ``phase_ms``: ``cuda_sumcheck.product_phase`` on seeded random Fr tables
+  at each ``--phase`` shape B,M (default 6,8192, the (16, 8) prove's gate
+  identity, and the reference envelope's 1,2097152 and 1,33554432),
+  on contiguous tables (no input copy), ``device`` (every launch of the
+  call; null where the profile holds another count of launches than the
+  calls made) and ``events`` as for ``add_ms``;
+* ``fr_chain_us``: where the package has the probes, one Fr product in a
+  one-thread chain, ``fmul<8>`` and the carry-chain ``fr_mul_cc``;
 * ``prove_median_s``: the (16, 8) leader-mode prove through ``bench.run``
   (``--prove-repeat`` proves after a warm-up; ``--no-prove`` skips it);
 * with ``--sass``, ``sass_ops``: the instructions of the one-thread chain
@@ -73,7 +81,8 @@ from .. import bench, cuda_build
 from ..curves import cuda_g1
 from ..curves.g1 import bls12_381_g1, map_points
 from ..device import DEFAULT, resolve, sync
-from ..primitives import msm
+from ..fields.fr import get_field
+from ..primitives import cuda_sumcheck, msm
 from ..primitives.poly_comm import rand_points_flat
 
 
@@ -96,12 +105,14 @@ def _ms(fn, dev: torch.device, reps: int) -> float:
     return statistics.median(times)
 
 
-def _device_ms(fn, dev: torch.device, reps: int):
+def _device_ms(fn, dev: torch.device, reps: int, launches: int = 0):
     """Device milliseconds a run of ``fn``: the own device time of every
     kernel and copy it launches over ``reps`` runs under ``torch.profiler``
-    (after a warm-up), over ``reps``; None on the CPU or when the profiler
-    reports no device time.  Only events on the card count: a host-side op
-    reports its kernels' time as its own too."""
+    (after a warm-up), over ``reps``; None on the CPU, when the profiler
+    reports no device time, or, given the ``launches`` a run makes, when it
+    reports another count (a session that dropped launches would read too
+    fast).  Only events on the card count: a host-side op reports its
+    kernels' time as its own too."""
     if dev.type != "cuda":
         return None
     fn()
@@ -110,8 +121,11 @@ def _device_ms(fn, dev: torch.device, reps: int):
         for _ in range(reps):
             fn()
         sync(dev)
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if launches and sum(e.count for e in events) != reps * launches:
+        return None
     total = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-                for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+                for e in events)
     return total / 1e3 / reps if total > 0 else None
 
 
@@ -200,21 +214,33 @@ MASKED = ((107328, 0.0162), (165120, 0.0164), (33024, 0.0175), (536640, 0.0063),
 # the (16, 8) prove's ladder shapes, then 1,027 lanes
 LADDERS = ((14, 16), (21, 16), (192, 16), (1027, 16))
 ACCUMULATE_CALLS = (("msm", 8192, 3), ("ragged", 4096, 3))
+PHASES = ((6, 1 << 13), (1, 1 << 21), (1, 1 << 25))
 
 
-def _timed(call, dev: torch.device, reps: int) -> dict:
-    return {"device": _device_ms(call, dev, reps), "events": _ms(call, dev, reps)}
+def _timed(call, dev: torch.device, reps: int, launches: int = 0) -> dict:
+    return {"device": _device_ms(call, dev, reps, launches), "events": _ms(call, dev, reps)}
 
 
 def run(device=DEFAULT, horner=((32, 3, 8), (43, 39, 6)), buckets=((33, 1677),),
         segments=(1, 2, 4, 8), reps: int = 10, prove_repeat: int = 5, sass: bool = False,
         add_lanes=ADD_LANES, accumulate=ACCUMULATE_CALLS, masked=MASKED,
-        ladders=LADDERS) -> dict:
+        ladders=LADDERS, phases=PHASES) -> dict:
     dev = resolve(device)
     curve = bls12_381_g1(dev)
     spec = curve.fq.spec
     out = {"card": _card(dev), "add_ms": {}, "masked_ms": {}, "ladder_ms": {},
-           "accumulate_ms": {}, "horner_ms": {}, "bucket_serial_ms": {}, "fq_chain_us": {}}
+           "accumulate_ms": {}, "horner_ms": {}, "bucket_serial_ms": {}, "fq_chain_us": {},
+           "phase_ms": {}, "fr_chain_us": {}}
+    Fr = get_field("bls12_381_fr", device=dev)
+    for k, (B, M) in enumerate(phases):  # contiguous tables: the call launches the phase alone
+        f = Fr.random((B, M), 131 + 2 * k).contiguous()
+        g = Fr.random((B, M), 132 + 2 * k).contiguous()
+        ch = Fr.random((M.bit_length(),), 141 + k).contiguous()
+        call = lambda: cuda_sumcheck.product_phase(Fr, f, g, ch, 0)  # noqa: E731
+        before = cuda_sumcheck.product_phase.launches
+        call()
+        out["phase_ms"][f"{B},{M}"] = _timed(call, dev, reps,
+                                             cuda_sumcheck.product_phase.launches - before)
     for k, m in enumerate(add_lanes):
         p1, p2 = _points(curve, (m,), 61 + 2 * k), _points(curve, (m,), 62 + 2 * k)
         out["add_ms"][str(m)] = _timed(lambda: cuda_g1.add(spec, p1, p2), dev, reps)
@@ -256,6 +282,12 @@ def run(device=DEFAULT, horner=((32, 3, 8), (43, 39, 6)), buckets=((33, 1677),),
                 step = (_ms(lambda: probe(spec, xy, 2 * n), dev, 3)
                         - _ms(lambda: probe(spec, xy, n), dev, 3)) / n
                 out["fq_chain_us"][name] = step * 1e3
+        if hasattr(cuda_sumcheck, "fr_mul_chain"):
+            fxy = Fr.random((2,), 72)
+            for name, cc in (("fmul", False), ("fr_mul_cc", True)):
+                probe = lambda k, cc=cc: cuda_sumcheck.fr_mul_chain(Fr.spec, fxy, k, cc)  # noqa: E731
+                step = (_ms(lambda: probe(2 * n), dev, 3) - _ms(lambda: probe(n), dev, 3)) / n
+                out["fr_chain_us"][name] = step * 1e3
     if sass:
         probes = (("g1", "fq_mul_chain_kernel"), ("g1_chain", "fq_mul_cc_chain_kernel"))
         out["sass_ops"] = {kernel: sass_ops(str(cuda_build._target(lib)), kernel)
@@ -313,6 +345,8 @@ def main(argv=None) -> int:
     ap.add_argument("--accumulate", type=_msm_calls, default=list(ACCUMULATE_CALLS),
                     help="MSM calls whose accumulate is timed: msm:N,B or ragged:TOP,B, "
                          "separated by ';'")
+    ap.add_argument("--phase", type=lambda t: _shapes(t, 2), default=list(PHASES),
+                    help="B,M phase shapes separated by ';'")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--prove-repeat", type=int, default=5)
     ap.add_argument("--no-prove", action="store_true")
@@ -320,7 +354,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     print(json.dumps(run(args.device, args.horner, args.bucket, args.segments, args.reps,
                          0 if args.no_prove else args.prove_repeat, args.sass, args.add,
-                         args.accumulate, args.masked, args.ladder)), flush=True)
+                         args.accumulate, args.masked, args.ladder, args.phase)), flush=True)
     return 0
 
 

@@ -1,6 +1,6 @@
 """The G1 kernels (also the team kernels at the prove's shapes), the dense
-MSM, the strided Fr products and the int8 engine on the card, against the
-plain versions.  Every test here needs a CUDA card and skips without one; the
+MSM, the strided Fr products, the int8 engine and the fold-phase kernel on
+the card, against the plain versions.  Every test here needs a CUDA card and skips without one; the
 file imports nothing of JAX, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_card.py tests/test_torch_package.py -m gpu
@@ -86,9 +86,9 @@ def test_team_kernels_match_plain_on_card(cuda):
     chunks; bit for bit against their plain versions, one launch a call."""
     C = bls12_381_g1(cuda)
     spec = C.fq.spec
-    before = cuda_g1.add.launches
-    held = chip_smoke.check_add_lanes(C, (3, 96, 8192))
-    assert cuda_g1.add.launches == before + len(held)
+    held = chip_smoke.check_add_lanes(C, (3, 96, 8192))  # checks one launch a call
+    assert held == [3, 96, 8192, "3 with edge lanes", "3 with edge lanes",
+                    "8192 with edge lanes"]
     for name, args in chip_smoke.accumulate_cases(C):
         before = cuda_g1.accumulate.launches
         out, doubled = cuda_g1.accumulate(spec, *args)
@@ -172,3 +172,18 @@ def test_int8_engine_on_card_matches_cpu(cuda):
     got = mxu.dot_red(Fc.spec, mxu.to_red(x.to(cuda)), mxu.to_red(y.to(cuda)))
     want = mxu.dot_red(Fh.spec, mxu.to_red(x), mxu.to_red(y))
     assert got.bound == want.bound and torch.equal(got.arr.cpu(), want.arr)
+
+
+@pytest.mark.gpu
+def test_phase_kernel_matches_plain_on_card(cuda):
+    """The fold-phase kernel at every table shape the (16, 8) prove folds,
+    M = 2 and 4, every cluster size, head rounds before the cluster and
+    [1, 2^21], on tables and challenges holding 0, 1 and p - 1, bit for
+    bit against its plain version (``chip_smoke.check_phase``), one launch
+    a phase up to 2^13; the carry-chain Fr product against fmul<8>."""
+    F = get_field("bls12_381_fr", device=cuda)
+    err, held = chip_smoke.check_phase(F)
+    assert err == 0 and len(held) == len(chip_smoke.PHASE_CHECKS)
+    assert {K for _, _, K, _ in held} == {1, 2, 4, 8}
+    assert all((head == 0) == (M <= cuda_sumcheck.TAIL_MAX) for _, M, _, head in held)
+    assert chip_smoke.fr_chain(F)["fr_mul_cc_held_on"] == (1 << 16) + 16

@@ -11,18 +11,23 @@ card sees the code:
   kernel fails here, not only on the card;
 * the G1 team kernels of ``csrc/g1.cu`` and ``csrc/g1_chain.cu`` (point
   ``add``, the accumulate, the masked adds, the scalar ladder, Horner,
-  and bucket-serial beside them) run on
-  an emulation of the card: each block's threads are host threads,
-  ``__syncthreads`` is a barrier of the block, ``__syncwarp`` one of the
-  lanes its mask names, ``__shfl_sync`` a barrier and exchange among
-  them, and the PTX carry-flag
+  and bucket-serial beside them) and the fold phase of ``csrc/sumcheck.cu``
+  (its cluster kernel and head rounds) run on an emulation of the card:
+  each block's threads are host threads, ``__syncthreads`` is a barrier of
+  the block, ``__syncwarp`` one of the lanes its mask names,
+  ``__shfl_sync`` a barrier and exchange among them; a cluster's blocks
+  run together, each with its own dynamic shared memory (not zeroed),
+  ``cluster.sync()`` is a barrier of the cluster and ``map_shared_rank``
+  maps an offset into another block's shared memory; the PTX carry-flag
   primitives of ``fq_chain.cuh`` are those of ``test_torch_fq_chain.py``
   with a carry flag per thread.  The C entries are called through
   ``ctypes`` on CPU tensors and held bit for bit against the plain
-  versions.  This checks the kernels' schedules, shuffles and branches
-  (teams of one warp that diverge, a shuffle whose lanes do not all take
-  part fails by timeout), not what ptxas makes of them: ``chip_smoke.py``
-  and ``tests/test_torch_card.py`` hold the built kernels on the card.
+  versions.  This checks the kernels' schedules, shuffles, barriers and
+  branches (teams of one warp that diverge, a shuffle or barrier that not
+  every named thread reaches fails by timeout, a skipped cluster.sync or
+  a block that may exit before another reads its shared memory fails at
+  once), not what ptxas makes of them: ``chip_smoke.py`` and
+  ``tests/test_torch_card.py`` hold the built kernels on the card.
 
 Skips where there is no ``g++``.
 """
@@ -33,12 +38,16 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke
 from scalable_collaborative_zksnark_tpu_torch.curves import cuda_g1
 from scalable_collaborative_zksnark_tpu_torch.curves.g1 import bls12_381_g1
+from scalable_collaborative_zksnark_tpu_torch.fields import cuda_fr
+from scalable_collaborative_zksnark_tpu_torch.fields.fr import get_field
+from scalable_collaborative_zksnark_tpu_torch.primitives import cuda_sumcheck
 from test_torch_fq_chain import BEGIN, END, PRIMITIVES
 
 CSRC = Path(__file__).resolve().parents[1] / "scalable_collaborative_zksnark_tpu_torch" / "csrc"
@@ -68,13 +77,16 @@ inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; };
+struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; size_t sharedSizeBytes; };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, const void*) {
   a->numRegs = 0;
   a->localSizeBytes = 0;
+  a->sharedSizeBytes = 0;
   return cudaSuccess;
 }
+template <class T>
+cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int) { return cudaSuccess; }
 inline unsigned min(unsigned a, unsigned b) { return a < b ? a : b; }
 inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
@@ -83,19 +95,71 @@ uint32_t __shfl_down_sync(unsigned mask, uint32_t v, unsigned delta, int width =
 void __syncthreads();
 void __syncwarp(unsigned mask = 0xffffffffu);
 void* emu_dynamic_smem();
+void* emu_map_shared(const void* p, int rank);
 template <class G, class B, class F>
-void emu_launch(G grid, B block, size_t smem, cudaStream_t stream, F kernel)
+void emu_launch(G grid, B block, size_t smem, cudaStream_t stream, F kernel,
+                unsigned cluster = 1)
 #ifdef SCZK_EMULATE
     ;  /* defined after the kernels, by EMULATION */
 #else
 {}
 #endif
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+union cudaLaunchAttributeValue { struct { unsigned x, y, z; } clusterDim; };
+struct cudaLaunchAttribute { cudaLaunchAttributeID id; cudaLaunchAttributeValue val; };
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+template <class... E, class... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(E...), A&&... args) {
+  unsigned cluster = 1;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i) {
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension) {
+      cluster = cfg->attrs[i].val.clusterDim.x;
+    }
+  }
+  emu_launch(cfg->gridDim, cfg->blockDim, cfg->dynamicSmemBytes, cfg->stream,
+             [&] { kernel(args...); }, cluster);
+  return cudaSuccess;
+}
 """
 
-# Blocks run one after another; a block's threads are host threads.  A
-# barrier wait that outlasts BARRIER_S means some thread never arrived: a
-# shuffle or __syncthreads that not every named thread reached.
+# The cluster API the sources use (cooperative_groups::this_cluster()).
+COOPERATIVE_GROUPS = r"""
+#pragma once
+#include "cuda_runtime.h"
+namespace cooperative_groups {
+struct cluster_group {
+  void sync() const;
+  unsigned block_rank() const;
+  unsigned num_blocks() const;
+  template <class T>
+  T* map_shared_rank(T* addr, int rank) const {
+    return static_cast<T*>(emu_map_shared(addr, rank));
+  }
+};
+cluster_group this_cluster();
+}  // namespace cooperative_groups
+"""
+
+# Clusters run one after another, the blocks of a cluster together; a
+# block's threads are host threads.  A barrier wait that outlasts
+# SCZK_EMU_BARRIER_S (60 s unless defined) means some thread never arrived:
+# a shuffle, __syncthreads or cluster.sync that not every named thread
+# reached.  A cluster.sync whose threads arrive from different call sites
+# (one thread skipped a cluster.sync and arrived at the next) fails at once,
+# and so does a launch in which a block may have exited before another
+# read its shared memory (no cluster.sync between the read and the exit).
+# Dynamic shared memory starts as 0xA5 bytes, not zeros.
 EMULATION = r"""
+#include <cooperative_groups.h>
+
+#include <algorithm>
+#include <atomic>
 #include <chrono>
 #include <condition_variable>
 #include <cstdio>
@@ -107,31 +171,50 @@ EMULATION = r"""
 #include <utility>
 #include <vector>
 
+#ifndef SCZK_EMU_BARRIER_S
+#define SCZK_EMU_BARRIER_S 60
+#endif
+
 thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 
 namespace emu {
-constexpr int BARRIER_S = 60;
-
 struct Barrier {
   std::mutex m;
   std::condition_variable cv;
   int n, count = 0;
-  unsigned long gen = 0;
+  std::atomic<unsigned long> gen{0};
+  const void* site = nullptr;  // the call site of this generation (cluster.sync)
   explicit Barrier(int n) : n(n) {}
   void release() {
     count = 0;
+    site = nullptr;
     ++gen;
     cv.notify_all();
   }
-  void wait(const char* what) {
+  void wait(const char* what, const void* from = nullptr) {
     std::unique_lock<std::mutex> l(m);
+    if (from) {
+      if (count && site != from) {
+        std::fprintf(stderr, "emulation: %s of thread %u of block %u arrives from another "
+                     "call site than the threads before it\n", what, threadIdx.x, blockIdx.x);
+        std::abort();
+      }
+      site = from;
+    }
     const unsigned long g = gen;
     if (++count >= n) {
       release();
       return;
     }
-    if (!cv.wait_for(l, std::chrono::seconds(BARRIER_S), [&] { return gen != g; })) {
-      std::fprintf(stderr, "emulation: %s of thread %u never completed\n", what, threadIdx.x);
+    l.unlock();  // a short spin first: most barriers complete within it
+    for (int k = 0; k < 64; ++k) {
+      if (gen.load() != g) return;
+      std::this_thread::yield();
+    }
+    l.lock();
+    if (!cv.wait_for(l, std::chrono::seconds(SCZK_EMU_BARRIER_S), [&] { return gen != g; })) {
+      std::fprintf(stderr, "emulation: %s of thread %u of block %u never completed\n", what,
+                   threadIdx.x, blockIdx.x);
       std::abort();
     }
   }
@@ -144,11 +227,23 @@ struct Barrier {
 struct Block {
   std::unique_ptr<Barrier> sync;
   std::mutex lock;
+  // cluster.syncs done: fewest by any of its threads at exit; most, plus
+  // one, by another block's thread at a read of its shared memory
+  unsigned exit_syncs = ~0u, read_syncs = 0;
   std::map<std::pair<unsigned, unsigned>, std::unique_ptr<Barrier>> teams;  // (warp, mask)
-  std::vector<uint32_t> slot;
+  std::vector<uint32_t> slot[2];
   std::vector<unsigned char> smem;
 };
-Block* block;
+
+struct Cluster {
+  std::unique_ptr<Barrier> sync;
+  std::vector<Block*> blocks;
+};
+
+thread_local Block* block;
+thread_local Cluster* cluster;
+thread_local unsigned rank, syncs;
+thread_local std::map<const Barrier*, unsigned> shuffles;  // a thread's shuffles a team
 
 Barrier& team(unsigned mask) {
   std::lock_guard<std::mutex> l(block->lock);
@@ -163,12 +258,14 @@ uint32_t exchange(unsigned mask, uint32_t v, unsigned src_lane) {
     std::fprintf(stderr, "emulation: shuffle of lane %u outside its mask\n", lane);
     std::abort();
   }
+  // one barrier a shuffle: the team's shuffles alternate between two
+  // slot rows, and a row is written again only after the next barrier,
+  // which every lane reaches after its read of the row
   Barrier& b = team(mask);
-  block->slot[threadIdx.x] = v;
+  const unsigned row = shuffles[&b]++ & 1u;
+  block->slot[row][threadIdx.x] = v;
   b.wait("a shuffle");
-  const uint32_t r = block->slot[base + src_lane];
-  b.wait("a shuffle");
-  return r;
+  return block->slot[row][base + src_lane];
 }
 }  // namespace emu
 
@@ -189,29 +286,81 @@ void __syncwarp(unsigned mask) { emu::team(mask).wait("a __syncwarp"); }
 
 void* emu_dynamic_smem() { return emu::block->smem.data(); }
 
+// The same offset in block `rank`'s dynamic shared memory.
+void* emu_map_shared(const void* p, int rank) {
+  const auto& own = emu::block->smem;
+  const size_t off = static_cast<const unsigned char*>(p) - own.data();
+  if (off >= own.size() || rank < 0 || (size_t)rank >= emu::cluster->blocks.size()) {
+    std::fprintf(stderr, "emulation: map_shared_rank outside dynamic shared memory or the "
+                 "cluster\n");
+    std::abort();
+  }
+  emu::Block* other = emu::cluster->blocks[rank];
+  if ((unsigned)rank != emu::rank) {
+    std::lock_guard<std::mutex> l(other->lock);
+    other->read_syncs = std::max(other->read_syncs, emu::syncs + 1);
+  }
+  return other->smem.data() + off;
+}
+
+namespace cooperative_groups {
+__attribute__((noinline)) void cluster_group::sync() const {
+  emu::cluster->sync->wait("cluster.sync", __builtin_return_address(0));
+  ++emu::syncs;
+}
+unsigned cluster_group::block_rank() const { return emu::rank; }
+unsigned cluster_group::num_blocks() const { return (unsigned)emu::cluster->blocks.size(); }
+cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups
+
 template <class G, class B, class F>
-void emu_launch(G grid, B block, size_t smem, cudaStream_t, F kernel) {
+void emu_launch(G grid, B block, size_t smem, cudaStream_t, F kernel, unsigned cluster) {
   const dim3 g(grid), b(block);
+  if (cluster == 0 || g.x % cluster) {
+    std::fprintf(stderr, "emulation: grid %u is not a multiple of the cluster %u\n", g.x,
+                 cluster);
+    std::abort();
+  }
   for (unsigned by = 0; by < g.y; ++by) {
-    for (unsigned bx = 0; bx < g.x; ++bx) {
-      emu::Block st;
-      st.sync = std::make_unique<emu::Barrier>((int)b.x);
-      st.slot.assign((b.x + 31) / 32 * 32, 0u);
-      st.smem.assign(smem, 0);
-      emu::block = &st;
+    for (unsigned bx = 0; bx < g.x; bx += cluster) {
+      emu::Cluster cl;
+      cl.sync = std::make_unique<emu::Barrier>((int)(b.x * cluster));
+      std::vector<std::unique_ptr<emu::Block>> blocks;
+      for (unsigned k = 0; k < cluster; ++k) {
+        blocks.push_back(std::make_unique<emu::Block>());
+        blocks[k]->sync = std::make_unique<emu::Barrier>((int)b.x);
+        for (auto& row : blocks[k]->slot) row.assign((b.x + 31) / 32 * 32, 0u);
+        blocks[k]->smem.assign(smem, 0xA5);  // not zeroed, as on the card
+        cl.blocks.push_back(blocks[k].get());
+      }
       std::vector<std::thread> threads;
-      for (unsigned t = 0; t < b.x; ++t) {
-        threads.emplace_back([&, t] {
-          threadIdx = dim3(t);
-          blockIdx = dim3(bx, by);
-          blockDim = b;
-          gridDim = g;
-          kernel();
-          st.sync->drop();
-        });
+      for (unsigned k = 0; k < cluster; ++k) {
+        for (unsigned t = 0; t < b.x; ++t) {
+          threads.emplace_back([&, k, t] {
+            threadIdx = dim3(t);
+            blockIdx = dim3(bx + k, by);
+            blockDim = b;
+            gridDim = g;
+            emu::block = blocks[k].get();
+            emu::cluster = &cl;
+            emu::rank = k;
+            emu::syncs = 0;
+            kernel();
+            blocks[k]->sync->drop();
+            cl.sync->drop();
+            std::lock_guard<std::mutex> l(blocks[k]->lock);
+            blocks[k]->exit_syncs = std::min(blocks[k]->exit_syncs, emu::syncs);
+          });
+        }
       }
       for (auto& th : threads) th.join();
-      emu::block = nullptr;
+      for (unsigned k = 0; k < cluster; ++k) {  // its shared memory outlived every remote read
+        if (blocks[k]->read_syncs > blocks[k]->exit_syncs) {
+          std::fprintf(stderr, "emulation: block %u may exit while another block reads its "
+                       "shared memory (no cluster.sync between)\n", bx + k);
+          std::abort();
+        }
+      }
     }
   }
 }
@@ -235,6 +384,7 @@ def _host_tree(tmp: Path, emulate: bool) -> Path:
     appended to each ``.cu``."""
     tmp.mkdir(parents=True, exist_ok=True)
     (tmp / "cuda_runtime.h").write_text(CUDA_RUNTIME)
+    (tmp / "cooperative_groups.h").write_text(COOPERATIVE_GROUPS)
     for src in CSRC.iterdir():
         text = src.read_text()
         if emulate and src.name == "fq_chain.cuh":
@@ -418,3 +568,125 @@ def test_emulated_chain_kernels(emulated, curve):
         assert lib.sczk_g1_bucket_serial(*_ptrs(grid), W, C, S, *_ptrs(out), _consts(spec),
                                          None) == 0
         _assert_points_equal(out, cuda_g1.bucket_serial_plain(spec, grid, S))
+
+
+def _build(tree: Path, name: str, sigs: dict, *flags) -> ctypes.CDLL:
+    """``tree/<name>.cu`` built for the emulation and loaded with ``sigs``."""
+    out = tree / f"lib{name}.so"
+    subprocess.run([_gxx(), "-std=c++17", "-O1", "-pthread", "-shared", "-fPIC", "-DSCZK_EMULATE",
+                    *flags, "-x", "c++", "-I", str(tree), "-o", str(out), str(tree / f"{name}.cu")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    for fn, argtypes in sigs.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+@pytest.fixture(scope="module")
+def phase_lib(tmp_path_factory):
+    """``sumcheck.cu`` built for the emulation."""
+    _gxx()
+    tree = _host_tree(tmp_path_factory.mktemp("csrc_host"), emulate=True)
+    return _build(tree, "sumcheck", cuda_sumcheck._SIGNATURES)
+
+
+def _phase_tables(F, B: int, M: int, seed: int):
+    """Seeded f, g [B, M] with 0, 1 and p - 1 in the first slot, and the
+    challenges (one of them 0, one 1, one p - 1)."""
+    f, g = F.random((B, M), seed), F.random((B, M), seed + 1)
+    edge = F.array_from_ints([0, 1, F.p - 1])
+    n = min(M, 3)
+    f[0, :n], g[0, -n:] = edge[:n], edge[-n:]
+    ch = F.random((M.bit_length() + 4,), seed + 2)
+    ch[2:5] = edge
+    return f, g, ch
+
+
+# (M, K, head): every M of a few rounds with one and two blocks a cluster
+# (M = 2, K = 2 holds one element a block; M = 512 has teams of 2, 4 and 8
+# lanes a pair), one whose first round has a pair for every thread, and one
+# whose table takes two head rounds (both halves of the head tables'
+# scratch) before its cluster
+PHASE_CASES = ([(M, K, 0) for M in (2, 8, 64, 512) for K in (1, 2)]
+               + [(1024, 1, 0), (128, 2, 2)])
+
+
+@pytest.mark.parametrize("M,K,head", PHASE_CASES)
+def test_emulated_phase(phase_lib, M, K, head):
+    """``sczk_product_phase`` (the cluster kernel, after ``head`` streaming
+    head rounds) against ``product_phase_plain`` at B = 2, bit for bit:
+    every message and both finals, from challenge 2 on."""
+    F = get_field("bls12_381_fr", device="cpu")
+    f, g, ch = _phase_tables(F, 2, M, M + K + head)
+    msgs, ff, fg = cuda_sumcheck.run_phase(phase_lib, F.spec, f, g, ch, 2, K, head, None)
+    pm, pf, pg = cuda_sumcheck.product_phase_plain(F.spec, f, g, ch, 2)
+    assert torch.equal(msgs, torch.stack(pm, dim=1))
+    assert torch.equal(ff, pf) and torch.equal(fg, pg)
+
+
+def test_emulated_phase_refuses(phase_lib):
+    """A cluster that is not 1, 2, 4 or 8 blocks, one larger than the
+    table, or head rounds without their scratch are refused, not launched;
+    a phase without head rounds needs no scratch."""
+    F = get_field("bls12_381_fr", device="cpu")
+    f, g, ch = _phase_tables(F, 1, 8, 5)
+    for K, head in ((3, 0), (16, 0), (8, 2)):
+        with pytest.raises(RuntimeError, match="cudaError_t 1"):
+            cuda_sumcheck.run_phase(phase_lib, F.spec, f, g, ch, 0, K, head, None)
+    z = torch.zeros(8, dtype=torch.int32)
+    assert phase_lib.sczk_product_phase(f.data_ptr(), g.data_ptr(), ch.data_ptr(), *[z.data_ptr()] * 3,
+                                        None, 8, 1, 1, 1,
+                                        cuda_fr.field_consts(F.spec).ctypes.data, None) == 1
+    words = np.zeros(1, dtype=np.int64)
+    assert phase_lib.sczk_phase_scratch_words(8, 1, 0, words.ctypes.data) == 0 and words[0] == 0
+
+
+MISSED = r"""
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+namespace cg = cooperative_groups;
+__global__ void missed_kernel(int how, int* out) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const bool odd_one = cluster.block_rank() == 1 && threadIdx.x == 5;
+  if (how == 0 && !odd_one) cluster.sync();  // one thread skips a cluster.sync
+  if (how == 1 && odd_one) __syncthreads();  // one thread waits at another barrier
+  if (how == 1 && !odd_one) cluster.sync();
+  out[blockIdx.x * blockDim.x + threadIdx.x] = 1;
+  cluster.sync();
+}
+int main(int argc, char** argv) {
+  static int out[64];
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2);
+  cfg.blockDim = dim3(32);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, missed_kernel, argv[1][0] - '0', out);
+  return 0;
+}
+"""
+
+
+@pytest.mark.parametrize("how,message", [(0, "another call site"), (1, "never completed"),
+                                         (2, None)])
+def test_emulation_fails_a_missed_cluster_barrier(tmp_path, how, message):
+    """A cluster of two 32-thread blocks in which one thread skips a
+    ``cluster.sync`` (it arrives at the next one) or waits at
+    ``__syncthreads`` while the others wait at ``cluster.sync``: the
+    emulation aborts, naming the fault (a 2 s barrier timeout here).  With
+    every thread at every barrier (how 2) it runs to its end."""
+    tree = _host_tree(tmp_path / "tree", emulate=True)
+    (tree / "missed.cu").write_text(_host_source(MISSED) + EMULATION)
+    exe = tmp_path / "missed"
+    subprocess.run([_gxx(), "-std=c++17", "-O1", "-pthread", "-DSCZK_EMULATE",
+                    "-DSCZK_EMU_BARRIER_S=2", "-x", "c++", "-I", str(tree), "-o", str(exe),
+                    str(tree / "missed.cu")], check=True, capture_output=True)
+    run = subprocess.run([str(exe), str(how)], capture_output=True, text=True, timeout=60)
+    if message is None:
+        assert run.returncode == 0, run.stderr
+    else:
+        assert run.returncode != 0 and message in run.stderr

@@ -1,5 +1,7 @@
-"""The low-latency Fq product of ``csrc/fq_chain.cuh`` (Horner's and
-bucket-serial's) on the CPU.
+"""The low-latency Montgomery products of ``csrc/fq_chain.cuh`` on the CPU:
+``fq_mul_cc`` (N = 12, Horner's, bucket-serial's and the team kernels')
+and ``fr_mul_cc`` (N = 8, the sumcheck fold phase's), and the phase's
+carry-flag ``fr_add_cc`` and ``fr_sub_cc``.
 
 The product is CUDA C++ on PTX carry-flag instructions, which nothing here
 can run.  This test compiles the header's arithmetic with the host C++
@@ -9,7 +11,8 @@ instructions (a carry flag that each ``.cc`` instruction sets and each
 and random values.  It checks the schedule of the even and odd
 accumulators and their carries, not the compiled PTX: ``chip_smoke.py``
 and ``tests/test_torch_card.py`` hold the kernel itself against ``fmul``
-on the card.  Skips where there is no ``g++``.
+on the card, and ``fr_mul_cc`` against ``fmul<8>`` likewise.  Skips
+where there is no ``g++``.
 """
 
 import shutil
@@ -57,15 +60,15 @@ static inline uint32_t subc(uint32_t a, uint32_t b) { return a - b - CF; }
 MAIN = """
 #include <cstdio>
 int main() {
-  FieldConst<12> f;
-  for (int j = 0; j < 12; ++j) if (scanf("%x", &f.p[j]) != 1) return 1;
+  FieldConst<NW> f;
+  for (int j = 0; j < NW; ++j) if (scanf("%x", &f.p[j]) != 1) return 1;
   if (scanf("%x", &f.n0) != 1) return 1;
-  uint32_t a[12], b[12], r[12];
+  uint32_t a[NW], b[NW], r[NW];
   for (;;) {
-    for (int j = 0; j < 12; ++j) if (scanf("%x", &a[j]) != 1) return 0;
-    for (int j = 0; j < 12; ++j) if (scanf("%x", &b[j]) != 1) return 1;
-    fq_mul_cc(r, a, b, f);
-    for (int j = 0; j < 12; ++j) printf("%x ", r[j]);
+    for (int j = 0; j < NW; ++j) if (scanf("%x", &a[j]) != 1) return 0;
+    for (int j = 0; j < NW; ++j) if (scanf("%x", &b[j]) != 1) return 1;
+    MUL(r, a, b, f);
+    for (int j = 0; j < NW; ++j) printf("%x ", r[j]);
     printf("\\n");
   }
 }
@@ -79,23 +82,25 @@ def _host_source() -> str:
     return (SHIM + head.replace('#include "fr.cuh"', "") + PRIMITIVES + tail + MAIN)
 
 
-def test_fq_mul_cc_schedule_on_host(tmp_path):
-    """a b 2^-384 mod q, canonical, for every pair of edge values (0, 1,
-    q - 1, q - 2, R mod q, R^2 mod q, (q - 1) / 2) and for 3,000 random
-    pairs, 500 of them both just below q."""
+def _on_host(tmp_path, field: str, op: str, nbytes: int, seed: int, expect):
+    """``op`` of fq_chain.cuh (N = words of ``field``) on the host against
+    ``expect(x, y, p, R)``, for every pair of edge values (0, 1, p - 1,
+    p - 2, R mod p, R^2 mod p, (p - 1) / 2) and for 3,000 random pairs, 500
+    of them both just below p."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler (g++)")
-    src = tmp_path / "fq_chain_host.cpp"
+    spec = get_field(field, device="cpu").spec
+    n = spec.num_words
+    src = tmp_path / f"{op}_host.cpp"
     src.write_text(_host_source())
-    exe = tmp_path / "fq_chain_host"
-    subprocess.run([cxx, "-std=c++17", "-O1", "-o", str(exe), str(src)], check=True,
-                   capture_output=True)
-    spec = get_field("bls12_381_fq", device="cpu").spec
-    q, R = spec.modulus, 1 << 384
-    words = lambda v: [(v >> (32 * k)) & 0xFFFFFFFF for k in range(12)]  # noqa: E731
-    rng = np.random.RandomState(7)
-    rand = lambda: int.from_bytes(rng.bytes(48), "little") % q  # noqa: E731
+    exe = tmp_path / f"{op}_host"
+    subprocess.run([cxx, "-std=c++17", "-O1", f"-DNW={n}", f"-DMUL={op}", "-o", str(exe),
+                    str(src)], check=True, capture_output=True)
+    q, R = spec.modulus, 1 << (32 * n)
+    words = lambda v: [(v >> (32 * k)) & 0xFFFFFFFF for k in range(n)]  # noqa: E731
+    rng = np.random.RandomState(seed)
+    rand = lambda: int.from_bytes(rng.bytes(nbytes), "little") % q  # noqa: E731
     edge = [0, 1, q - 1, q - 2, R % q, R * R % q, (q - 1) // 2]
     pairs = [(x, y) for x in edge for y in edge] + [(rand(), rand()) for _ in range(2500)]
     pairs += [(q - 1 - int(rng.randint(1 << 30)), q - 1 - int(rng.randint(1 << 30)))
@@ -104,6 +109,31 @@ def test_fq_mul_cc_schedule_on_host(tmp_path):
     text += "\n".join(" ".join(f"{w:x}" for w in words(x) + words(y)) for x, y in pairs)
     out = subprocess.run([str(exe)], input=text, capture_output=True, text=True,
                          check=True).stdout.splitlines()
-    r_inv = pow(R, -1, q)
     got = [sum(int(w, 16) << (32 * k) for k, w in enumerate(line.split())) for line in out]
-    assert got == [x * y * r_inv % q for x, y in pairs]
+    assert got == [expect(x, y, q, R) for x, y in pairs]
+
+
+def _product(x, y, q, R):
+    return x * y * pow(R, -1, q) % q
+
+
+def test_fq_mul_cc_schedule_on_host(tmp_path):
+    """a b 2^-384 mod q, canonical, for every pair of edge values (0, 1,
+    q - 1, q - 2, R mod q, R^2 mod q, (q - 1) / 2) and for 3,000 random
+    pairs, 500 of them both just below q."""
+    _on_host(tmp_path, "bls12_381_fq", "fq_mul_cc", 48, 7, _product)
+
+
+def test_fr_mul_cc_schedule_on_host(tmp_path):
+    """The same for the N = 8 instance: a b 2^-256 mod r on BLS12-381's
+    scalar field, whose modulus leaves one spare bit (r < 2^255) where q
+    leaves two."""
+    _on_host(tmp_path, "bls12_381_fr", "fr_mul_cc", 32, 8, _product)
+
+
+@pytest.mark.parametrize("op", ["fr_add_cc", "fr_sub_cc"])
+def test_fr_add_sub_cc_on_host(tmp_path, op):
+    """The phase's carry-flag a + b and a - b mod r, canonical, on the same
+    edge and random pairs."""
+    sign = 1 if op == "fr_add_cc" else -1
+    _on_host(tmp_path, "bls12_381_fr", op, 32, 9, lambda x, y, q, R: (x + sign * y) % q)

@@ -288,13 +288,15 @@ def test_chain_bench_on_cpu(capsys):
     no device time on the CPU), per masked-add lane count and share, per
     ladder lanes and limbs, per accumulate call (the one a ragged MSM
     over levels 8, 4, 2, 1 makes, with its shape), per Horner shape and
-    per bucket shape and segment count, no product chain (a card-only
-    probe) and no prove."""
+    per bucket shape and segment count, per fold-phase shape, no product
+    chain (a card-only probe) and no prove."""
     chain_bench.main(["--device", "cpu", "--horner", "3,2,2;2,1,1", "--bucket", "5,3",
                       "--segments", "1,2", "--reps", "1", "--no-prove", "--add", "3",
                       "--masked", "5,4:0.25", "--ladder", "2x1",
-                      "--accumulate", "ragged:8,1"])
+                      "--accumulate", "ragged:8,1", "--phase", "2,8;1,4"])
     out = json.loads(capsys.readouterr().out)
+    assert set(out["phase_ms"]) == {"2,8", "1,4"} and out["fr_chain_us"] == {}
+    assert all(r["device"] is None and r["events"] > 0 for r in out["phase_ms"].values())
     assert out["card"] == "cpu" and set(out["horner_ms"]) == {"3,2,2", "2,1,1"}
     assert set(out["add_ms"]) == {"3"} and out["add_ms"]["3"]["device"] is None
     assert out["add_ms"]["3"]["events"] > 0

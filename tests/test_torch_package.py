@@ -194,6 +194,20 @@ def test_chip_smoke_replays_main_path_calls():
         chip_smoke.replay([(name, (spec, a, b), cuda_fr.add(spec, a, b))])
 
 
+def test_chip_smoke_phase_recording_keeps_calls_as_made():
+    """``chip_smoke.phase_recording`` keeps each phase call's operands and
+    results as they were at the call: ``sumcheck_product`` appends its
+    last message to the list the phase returned, and the replay still
+    pairs every message and final with the plain version's."""
+    F = get_field("bls12_381_fr", device="cpu")
+    f, g, ch = F.random((3, 8), 1), F.random((3, 8), 2), F.random((4,), 3)
+    with chip_smoke.phase_recording() as kept:
+        proof = sumcheck_module.sumcheck_product(F, f, g, ch)
+    assert sumcheck_module.cuda_sumcheck is cuda_sumcheck
+    assert proof.shape[-3] == 4 and len(kept) == 1 and len(kept[0][2][0]) == 3
+    assert chip_smoke.replay(kept)[0] == {"sumcheck_product_phase": 1}
+
+
 def test_chip_smoke_ladder_and_masked_shapes():
     """chip_smoke.py's shape keys of a ladder call (lanes after broadcast,
     scalar limbs) and of an add_masked call (lanes, masked lanes), its
@@ -244,6 +258,32 @@ def test_chip_smoke_counts_device_time_once():
                                                                "masked_op_team_kernel<0>"]
 
 
+def test_chip_smoke_per_call_device_time_needs_every_launch(monkeypatch):
+    """A run's device time (``launches_a_call``) comes only from a profile
+    session that reports every launch of the runs: a session that dropped
+    some would read too fast, so the next one is tried, and with none
+    whole the time is not measured.  A launch's time takes any session
+    that reports one."""
+    import contextlib
+    from types import SimpleNamespace
+
+    sessions = iter([[(8, 80.0)], [(30, 300.0), (10, 12.0)], [(5, 50.0)]])
+
+    def session_events(prof):
+        return [SimpleNamespace(key=f"phase_{k}", count=n, self_device_time_total=us)
+                for k, (n, us) in enumerate(next(sessions))]
+    monkeypatch.setattr(chip_smoke, "profile", lambda **kw: contextlib.nullcontext())
+    monkeypatch.setattr(chip_smoke, "_device_events", session_events)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    # 10 runs of 4 launches: the first session dropped 32, the second is whole
+    assert chip_smoke._device_ms(lambda: None, "phase_", reps=10,
+                                 launches_a_call=4) == pytest.approx(0.0312)
+    sessions = iter([[(8, 80.0)], [(39, 300.0)], [(5, 50.0)]])
+    assert chip_smoke._device_ms(lambda: None, "phase_", reps=10, launches_a_call=4) is None
+    sessions = iter([[(8, 80.0)]])
+    assert chip_smoke._device_ms(lambda: None, "phase_", reps=10) == pytest.approx(0.01)
+
+
 def test_chip_smoke_samples_loop_ends():
     """sampling_masked keeps the first and the last add_masked step of each
     chained loop, each once, and the kept steps replay bit-equal."""
@@ -285,6 +325,23 @@ def test_non_cuda_tensor_is_refused():
                  lambda: cuda_g1.add_reset(spec, pt, pt, torch.ones(4, dtype=torch.bool))):
         with pytest.raises(TypeError):
             call()
+
+
+def test_phase_plan_and_bound():
+    """The fold phase is one launch (no head round) at every M <= 2^13, the
+    cluster growing with M to 8 blocks; larger tables fold down to 2^13 in
+    head rounds.  Its bound at the gate identity's [6, 2^13] is the
+    operations term, 5 products of 264 multiplies a pair and round."""
+    plan = cuda_sumcheck.plan
+    assert [plan(1 << k) for k in (1, 3, 6, 7, 8, 9, 10, 13)] == [
+        (1, 0), (1, 0), (1, 0), (1, 0), (2, 0), (4, 0), (8, 0), (8, 0)]
+    assert plan(1 << 14) == (8, 1) and plan(1 << 21) == (8, 8) and plan(1 << 25) == (8, 12)
+    F = get_field("bls12_381_fr", device="cpu")
+    rate = 132 * 64 * 1.98e9
+    row = chip_smoke.phase_bound(F, 6, 1 << 13, rate, 5.0)
+    assert row["bound_by"] == "operations" and row["bound_kind"] == "throughput"
+    assert row["bound_ms"] == row["operations_ms"] == 6 * 8191 * 5 * 264 / rate * 1e3
+    assert row["chain_ms"] == 13 * 38 * 5.0 * 1e-6 < row["operations_ms"]
 
 
 def test_kernel_operand_periods():
@@ -334,7 +391,7 @@ def test_card_calls_count_launches(cuda):
     F.mul(f, g)
     cuda_sumcheck.product_phase(F, f, g, ch, 0)
     assert (cuda_fr.mul.launches, cuda_sumcheck.product_phase.launches) == (
-        before[0] + 1, before[1] + 6)  # one mul; two launches per round of M = 8
+        before[0] + 1, before[1] + 1)  # one mul; one launch a phase at M <= 2^13
     C = bls12_381_g1(cuda)
     before = cuda_g1.add.launches, cuda_g1.double.launches
     P = C.double(C.from_affine_ints([None, None]))
