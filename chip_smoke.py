@@ -8,7 +8,12 @@ Phases (any failure raises and exits non-zero):
 1. print the card's name and power limit; build every kernel from
    ``scalable_collaborative_zksnark_tpu_torch/csrc`` (one ``nvcc`` each,
    in parallel);
-2. hold each kernel (Fr mul/add/sub, the Fq instances, the limb-major
+2. hold each kernel (Fr mul/add/sub, the Fq instances, each also on
+   operands read through their strides (``binary_cases``: a transposed
+   view, a stepped slice, middle broadcasts, an outer product, a
+   misaligned base, the edge values 0, 1, p - 1, R mod p and (p - 1) / 2)
+   in small and staged launches, none of them copied, and timed at 2^20
+   by device time, staged and not; the limb-major
    and tiled Fr products on 2^20 elements, also against Fr mul after the
    layout transform; the sumcheck fold phase at every table shape the
    (16, 8) prove folds, M = 2 and 4, every cluster size, head rounds and
@@ -22,7 +27,8 @@ Phases (any failure raises and exits non-zero):
    and on 2-limb scalars, the accumulate on a forced x-collision, on a
    warp whose teams diverge and on random keys over two staging chunks) bit for bit against
    its plain PyTorch version on the card, and time both (CUDA events,
-   median of 10 or more for the kernels); print each kernel's registers
+   median of 10 or more for the kernels; ``add_mixed`` and ``double`` on
+   their team kernel also by device time); print each kernel's registers
    and spill bytes, and the latency of one dependent multiply-add (a
    one-thread chain) that the chain bounds of Horner, bucket-serial and
    the ladder are built on; the low-latency product of Horner and
@@ -62,9 +68,14 @@ Phases (any failure raises and exits non-zero):
    at 3 and 8,192, and timed at the four most frequent; the ladder held
    and timed at every shape it saw) and one non-dense prove whose
    ``add_masked`` lane counts are kept (held and timed at the four most
-   frequent); one dense prove whose Fr and Fq mul/add/sub operand shapes are
-   kept (each (field, op)'s commonest shape held and timed, device time a
-   launch beside its bound there); the dense
+   frequent); one dense prove whose every Fr and Fq mul/add/sub call is
+   kept with its operands as laid out and replayed through the plain
+   version (bit equality), counted by kernel instance and size, and each
+   (field, op)'s three commonest shapes timed on a kept call's own
+   operands (device time a launch, also in a small and a staged launch,
+   beside its bound there, the product's chain bound and the device time
+   of an empty launch); the operands the elementwise wrapper
+   copied in the dense prove (``cuda_fr.copies``, which must be 0); the dense
    prove must launch point add 854, the accumulate 15, Horner 15,
    bucket-serial 12 and the ladder 3 times, the non-dense one
    ``add_masked`` 1,755 and the ladder 3, the SRS bases the ladder 6; the (6, 1) prove in both
@@ -103,6 +114,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -254,6 +266,7 @@ SRS_LADDERS = 6
 PROVE_PHASE_LAUNCHES_MAX = 16
 # the names the profiler gives the team kernels of g1.cu
 ADD_KERNEL, ACCUMULATE_KERNEL = "add_team_kernel", "accumulate_team_kernel"
+POINT_OP_KERNEL = "point_op_team_kernel"  # add_mixed and double
 LADDER_KERNEL, MASKED_KERNEL = "scalar_mul_team_kernel", "masked_op_team_kernel"
 
 
@@ -392,12 +405,73 @@ def _g1_row(name: str, shape, err: int, ms: float, plain_ms: float, bound) -> di
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
+def _misaligned(F, n: int) -> torch.Tensor:
+    """n random elements of F, contiguous, based 4 bytes past a 16-byte
+    boundary (read with 4-byte loads)."""
+    flat = torch.zeros((n + 1) * F.L, dtype=torch.int32, device=F.device)
+    off = next(k for k in range(4) if (flat.data_ptr() + 4 * k) % 16 == 4)
+    x = flat[off:off + n * F.L].view(n, F.L)
+    x.copy_(F.random((n,), 55))
+    return x
+
+
+def binary_cases(F, outer=(64, 256)) -> dict:
+    """Operand pairs of the elementwise kernel, each read in place: the edge
+    values 0, 1, p - 1, R mod p and (p - 1) / 2 paired every way, a
+    transposed view, a stepped slice, a middle broadcast, an outer product
+    ``[outer[0], 1] x [1, outer[1]]`` (pss2ss's), a trailing block, the
+    prove's [10, 3, 1] x constant, a misaligned base beside a transposed
+    column, and 300 contiguous pairs with a misaligned one (a staged
+    launch's partial last tile, staged with 16-byte and with 4-byte loads)."""
+    edge = F.array_from_ints([0, 1, F.p - 1, F.spec.r % F.p, (F.p - 1) // 2]).contiguous()
+    rand = lambda shape, seed: F.random(shape, seed).contiguous()  # noqa: E731
+    return {
+        "edge": (edge.repeat_interleave(5, dim=0), edge.repeat(5, 1)),
+        "transposed": (rand((5, 7), 41).transpose(0, 1), rand((7, 5), 42)),
+        "stepped": (rand((20,), 43)[::3], rand((7,), 44)),
+        "middle_broadcast": (rand((3, 1), 45), rand((1, 5), 46)),
+        "outer_product": (rand((outer[0], 1), 47), rand((1, outer[1]), 48)),
+        "trailing_block": (rand((4, 8), 49), rand((8,), 50)),
+        "constant": (rand((10, 3, 1), 51), edge[2]),
+        "misaligned": (_misaligned(F, 7), rand((1, 7), 52).transpose(0, 1)),
+        "partial_tiles": (rand((300,), 53), _misaligned(F, 300)),
+    }
+
+
+def check_binary_cases(F, cases: dict) -> list:
+    """``cases`` (``binary_cases``) through ``mul``, ``add`` and ``sub`` and
+    through the C entry in small and in staged launches, bit for bit
+    against the plain versions, none of their operands copied; returns the
+    cases held."""
+    lib = cuda_build.library("fr", cuda_fr._SIGNATURES)
+    stream = torch.cuda.current_stream().cuda_stream
+    before = cuda_fr.copies
+    for name, (x, y) in cases.items():
+        for op in ("mul", "add", "sub"):
+            ref = getattr(cuda_fr, f"{op}_plain")(F.spec, x, y)
+            what = f"{F.spec.name} {op} {name} {tuple(x.shape)} x {tuple(y.shape)}"
+            _equal(what, getattr(cuda_fr, op)(F.spec, x, y), ref)
+            for staged in (False, True):
+                _equal(f"{what} (staged {staged})",
+                       cuda_fr.run_binary(lib, op, F.spec, x, y, stream, staged), ref)
+    if cuda_fr.copies != before:
+        raise AssertionError(f"{F.spec.name}: {cuda_fr.copies - before} operands copied")
+    return list(cases)
+
+
 def check_elementwise(F, m: int, int_rate: float) -> list[dict]:
+    """Each op on m random pairs and the edge values against its plain
+    version, timed (events, and device time from ``torch.profiler``, also
+    of the same launch unstaged), beside its bound, with its kernel's
+    registers and spill (small and staged launches); then large launches
+    with a constant and a trailing block, and ``check_binary_cases``."""
     a = F.random((m,), 101)
     b = F.random((m,), 102)
     edge = F.array_from_ints([0, 1, F.p - 1, F.spec.r % F.p, (F.p - 1) // 2])
     a = torch.cat([a, edge.repeat_interleave(5, dim=0)])
     b = torch.cat([b, edge.repeat(5, 1)])
+    lib = cuda_build.library("fr", cuda_fr._SIGNATURES)
+    stream = torch.cuda.current_stream().cuda_stream
     rows = []
     for op in ("mul", "add", "sub"):
         kern = getattr(cuda_fr, op)
@@ -411,26 +485,29 @@ def check_elementwise(F, m: int, int_rate: float) -> list[dict]:
         n = a.shape[0]
         muls = n * _mont_muls(F.spec.num_words) if op == "mul" else 0
         bound, by = _bound_ms(3 * n * F.L * 4, muls, int_rate)
+        device = _device_ms(lambda: kern(F.spec, a, b), "binary_kernel")
+        small = _device_ms(lambda: cuda_fr.run_binary(lib, op, F.spec, a, b, stream, False),
+                           "binary_kernel")
+        staged = cuda_fr.attributes(F.spec, op, staged=True)
         rows.append({
             "op": op, "field": F.spec.name, "shape": [n, F.L], "max_abs_err": err,
             "ms": _ms(lambda: kern(F.spec, a, b)),
+            "device_ms": "not measured" if device is None else device,
+            "unstaged_device_ms": "not measured" if small is None else small,
             "plain_ms": _ms(lambda: plain(F.spec, a, b)),
             "bound_ms": bound, "bound_by": by, "library_ms": None,
+            **cuda_fr.attributes(F.spec, op), "staged_registers": staged["registers"],
+            "staged_spill_bytes": staged["spill_bytes"],
         })
-    # broadcast operands as the path passes them: one constant (period 1),
-    # a repeated trailing block (period 1024), and an outer product as in
-    # pss2ss ([64, 1] x [1, 256]: the first is materialised, the second
-    # read with period 256)
+    # large launches (staged) with operands that are not dense: a constant,
+    # a repeated trailing block of 1,024
     blk = 1024
-    cases = [(a, b[0]), (a[: m // blk * blk].reshape(-1, blk, F.L), b[:blk]),
-             (a[:64, None], b[None, :256])]
-    for x, y in cases:
+    for x, y in ((a, b[0]), (a[: m // blk * blk].reshape(-1, blk, F.L), b[:blk])):
         for op in ("mul", "add", "sub"):
-            err = _max_abs_err(getattr(cuda_fr, op)(F.spec, x, y),
-                               getattr(cuda_fr, f"{op}_plain")(F.spec, x, y))
-            if err:
-                raise AssertionError(f"{F.spec.name} {op} {tuple(x.shape)} x {tuple(y.shape)}: "
-                                     f"kernel differs from plain version by {err}")
+            _equal(f"{F.spec.name} {op} {tuple(x.shape)} x {tuple(y.shape)}",
+                   getattr(cuda_fr, op)(F.spec, x, y),
+                   getattr(cuda_fr, f"{op}_plain")(F.spec, x, y))
+    rows[0]["cases_held"] = check_binary_cases(F, binary_cases(F))
     return rows
 
 
@@ -654,11 +731,14 @@ def check_g1(curve, int_rate: float, lat_ms: float) -> dict:
                                    _ms(lambda: kern(spec, p1, rhs)),
                                    _ms(lambda: kern.plain(spec, p1, rhs), reps=3), bound)
     rows["g1_add"]["device_ms"] = _device_ms(lambda: cuda_g1.add(spec, p1, p2), ADD_KERNEL)
+    rows["g1_add_mixed"]["device_ms"] = _device_ms(lambda: cuda_g1.add_mixed(spec, p1, a2),
+                                                   POINT_OP_KERNEL)
     err = _equal("g1 double", cuda_g1.double(spec, p1), cuda_g1.double.plain(spec, p1))
     rows["g1_double"] = _g1_row("double", (M, spec.num_limbs), err,
                                 _ms(lambda: cuda_g1.double(spec, p1)),
                                 _ms(lambda: cuda_g1.double.plain(spec, p1), reps=3),
                                 _g1_bound(M * 7, 6 * M * 96, DOUBLE_DEPTH, int_rate, lat_ms))
+    rows["g1_double"]["device_ms"] = _device_ms(lambda: cuda_g1.double(spec, p1), POINT_OP_KERNEL)
 
     # scalar ladder: 1,024 random full-width scalars and 0, 1, r - 1, then
     # the diverging warp and the 2-limb scalars of ladder_cases
@@ -1158,6 +1238,7 @@ def _wrappers() -> dict:
 def _reset_counts():
     for fn in _wrappers().values():
         fn.launches = 0
+    cuda_fr.copies = 0
 
 
 def _counts() -> dict:
@@ -1226,7 +1307,8 @@ def sampling_masked():
         ends.close(kept)
 
 
-def prove_phase(launches: dict, replayed: dict, int_rate: float, lat_ms: float) -> dict:
+def prove_phase(launches: dict, replayed: dict, int_rate: float, lat_ms: float,
+                imad_ns: float) -> dict:
     """The main path: ``dhyperplonk`` at n = 16, l = 8, leader mode, through
     the bench entry (setup, warm-up, three synchronised proves, one with
     synchronised spans), its digest and comm against the pins, then one
@@ -1249,6 +1331,7 @@ def prove_phase(launches: dict, replayed: dict, int_rate: float, lat_ms: float) 
             torch.cuda.synchronize()
             report[f"{key}_s"] = time.perf_counter() - t0
             launches[key] = _counts()
+            report[f"{key}_fr_copies"] = cuda_fr.copies
         _check_pin(f"prove_n{n}_l{l}_comm", _comm(net))
         _check_pin(f"prove_n{n}_l{l}", proof_digest(pk.curve, out))
         report[f"{key}_launches"] = {k: v for k, v in launches[key].items() if v}
@@ -1273,7 +1356,7 @@ def prove_phase(launches: dict, replayed: dict, int_rate: float, lat_ms: float) 
     report.update(mxu_prove(pk, net, n, launches))
     report["shapes"] = prove_shapes(pk, net, n, int_rate, lat_ms)
     report["shapes_nondense"] = nondense_shapes(pk, net, n, int_rate, lat_ms)
-    report.update(elementwise_shapes(pk, net, n, int_rate))
+    report.update(elementwise_shapes(pk, net, n, int_rate, imad_ns))
     report["profile"] = profile_prove(pk, net, n)
     report["profile_nondense"] = profile_prove(pk, net, n, dense=False)
     del pk
@@ -1425,46 +1508,107 @@ def prove_shapes(pk, net, n: int, int_rate: float, lat_ms: float) -> dict:
             "ladder_at_prove_shapes": ladder_rows}
 
 
-def elementwise_shapes(pk, net, n: int, int_rate: float) -> dict:
-    """One dense prove with the operand shapes of every Fr and Fq ``mul``,
-    ``add`` and ``sub`` call kept (the calls themselves are not); then each
-    (field, op)'s three commonest shapes held against the plain version and
-    timed on random operands of those shapes: the elementwise kernel's
-    device time a launch beside its bound there (each operand read once,
-    the result written once; 4N^2 + N multiplies an element for ``mul``)."""
-    calls = []
+def _view_snapshot(x):
+    """A tensor operand as it is now and as it is laid out: a copy of the
+    storage span it reads, viewed with its own sizes and strides, based at
+    its own offset from a 16-byte boundary (a broadcast or a stepped view
+    stays one, and takes the same instance of the kernel); anything else as
+    it is."""
+    if not isinstance(x, torch.Tensor) or x.numel() == 0:
+        return _snapshot(x)
+    span = 1 + sum((n - 1) * st for n, st in zip(x.shape, x.stride()))
+    off = x.data_ptr() % 16 // x.element_size()
+    buf = torch.empty(span + off, dtype=x.dtype, device=x.device)  # 16-byte aligned
+    buf[off:].copy_(x.as_strided((span,), (1,)))
+    return buf[off:].as_strided(x.shape, x.stride())
 
-    def keep(kept, entry):
-        name, (spec, a, b), _ = entry
-        kept.append((spec.name, name[3:], tuple(a.shape[:-1]), tuple(b.shape[:-1])))
-    fr_module.cuda_fr = _Recorder(cuda_fr, "fr_", ("mul", "add", "sub"), calls, keep=keep)
+
+def _keep_views(calls: list, entry):
+    name, args, out = entry
+    calls.append((name, tuple(_view_snapshot(a) for a in args), out.clone()))
+
+
+def record_elementwise(run) -> tuple[list, list, dict]:
+    """``run()`` with every Fr and Fq ``mul``, ``add`` and ``sub`` call kept,
+    its operands as they were at the call and as they were laid out
+    (``_view_snapshot``), and its result; every call replayed bit for bit
+    against the plain version on its own operands.  Returns the calls, each
+    call's (field, op, a's and b's batch shape), and a summary: the calls
+    replayed, and the calls counted by the instance of the kernel they take
+    (``cuda_fr.launch_mode``) and by outputs (log2, rounded up)."""
+    calls = []
+    fr_module.cuda_fr = _Recorder(cuda_fr, "fr_", ("mul", "add", "sub"), calls, keep=_keep_views)
     try:
-        with msm_config(True):
-            dhyperplonk(n, pk, net)
-            torch.cuda.synchronize()
+        run()
     finally:
         fr_module.cuda_fr = cuda_fr
-    hist = collections.Counter(calls)
+    keys = [(args[0].name, name[3:], tuple(args[1].shape[:-1]), tuple(args[2].shape[:-1]))
+            for name, args, _ in calls]
+    modes = collections.Counter((f"{k[0]} {k[1]}", cuda_fr.launch_mode(*args[1:]))
+                                for k, (_, args, _) in zip(keys, calls))
+    sizes = collections.Counter(math.ceil(math.log2(max(out.shape[:-1].numel(), 1)))
+                                for _, _, out in calls)
+    return calls, keys, {"elementwise_calls_replayed": replay(calls)[0],
+                         "elementwise_calls_by_mode": sorted(modes.items()),
+                         "elementwise_calls_by_log2_outputs": sorted(sizes.items()),
+                         "stage_min": cuda_fr.STAGE_MIN}
+
+
+def elementwise_shapes(pk, net, n: int, int_rate: float, imad_ns: float) -> dict:
+    """One dense prove through ``record_elementwise``, one launch a call
+    with a result.  Then each (field, op)'s three commonest shapes timed on
+    the first call kept at that shape, its own operands: the device time a
+    launch through the wrapper (the instance the prove takes), and in a
+    small and in a staged launch, beside its bound there (each operand's
+    distinct elements read once, the result written once; 4N^2 + N multiplies an element for
+    ``mul``) and two floors: for ``mul`` the chain bound of one product
+    (``cios_depth`` dependent multiply-adds of ``imad_ns`` each), and the
+    device time of an empty launch, which only fewer launches can cut."""
+    def prove():
+        with msm_config(True):
+            _reset_counts()
+            dhyperplonk(n, pk, net)
+            torch.cuda.synchronize()
+    calls, keys, summary = record_elementwise(prove)
+    launches = _counts()
+    for key in ("fr_mul", "fr_add", "fr_sub"):
+        made = sum(1 for name, _, out in calls if name == key and out.numel())
+        if made != launches[key]:
+            raise AssertionError(f"the prove launched {key} {launches[key]} times, "
+                                 f"kept {made} calls with a result")
+    hist = collections.Counter(keys)
+    first = {}
+    for k, (_, args, _) in zip(keys, calls):
+        first.setdefault(k, args)
+    lib = cuda_build.library("fr", cuda_fr._SIGNATURES)
+    stream = torch.cuda.current_stream().cuda_stream
     rows = []
-    common = [(k, v) for fo in sorted({c[:2] for c in calls})
+    common = [(k, v) for fo in sorted({k[:2] for k in keys})
               for k, v in collections.Counter({k: v for k, v in hist.items()
                                                if k[:2] == fo}).most_common(3)]
-    for (field, op, sa, sb), count in common:
-        F = get_field(field)
-        a, b = F.random(sa, 91).contiguous(), F.random(sb, 92).contiguous()
+    for key, count in common:
+        field, op, sa, sb = key
+        spec, a, b = first[key]
         kern = getattr(cuda_fr, op)
-        out = kern(F.spec, a, b)
-        _equal(f"{field} {op} at {sa} x {sb}", out, getattr(cuda_fr, f"{op}_plain")(F.spec, a, b))
-        m = out.shape[:-1].numel()
-        muls = m * _mont_muls(F.spec.num_words) if op == "mul" else 0
-        bound, by = _bound_ms((a.numel() + b.numel() + out.numel()) * 4, muls, int_rate)
-        device = _device_ms(lambda: kern(F.spec, a, b), "binary_kernel")
+        m = torch.broadcast_shapes(a.shape, b.shape)[:-1].numel()
+        muls = m * _mont_muls(spec.num_words) if op == "mul" else 0
+        read = sum(math.prod(k for k, st in zip(x.shape, x.stride()) if st) for x in (a, b))
+        bound, by = _bound_ms((read + m * spec.num_limbs) * 4, muls, int_rate)
+        times = {
+            "device_ms": _device_ms(lambda: kern(spec, a, b), "binary_kernel"),
+            **{f"{how}_device_ms": _device_ms(
+                lambda staged=staged: cuda_fr.run_binary(lib, op, spec, a, b, stream, staged),
+                "binary_kernel") for how, staged in (("small", False), ("staged", True))}}
+        chain = cios_depth(spec.num_words) * imad_ns * 1e-6 if op == "mul" else None
         rows.append({"field": field, "op": op, "shape": [list(sa), list(sb)],
-                     "calls_at_shape": count,
+                     "strides": [list(a.stride()), list(b.stride())],
+                     "mode": cuda_fr.launch_mode(a, b), "calls_at_shape": count,
                      "calls": sum(v for k, v in hist.items() if k[:2] == (field, op)),
-                     "device_ms": "not measured" if device is None else device,
-                     "bound_ms": bound, "bound_by": by})
-    return {"elementwise_at_commonest_shapes": rows}
+                     **{k: "not measured" if v is None else v for k, v in times.items()},
+                     "bound_ms": bound, "bound_by": by, "chain_bound_ms": chain})
+    empty = _device_ms(lambda: cuda_fr.empty_launch(torch.device("cuda")), "empty_kernel")
+    return {**summary, "elementwise_at_commonest_shapes": rows,
+            "empty_launch_device_ms": "not measured" if empty is None else empty}
 
 
 def ladder_scalars(curve, m: int, L: int, seed: int) -> torch.Tensor:
@@ -1698,7 +1842,7 @@ def main() -> int:
 
     # 5. the main path: the prove at n = 16, l = 8 in both MSM
     # configurations, and the (6, 1) prove
-    prove = prove_phase(launches, replayed, int_rate, lat_ms)
+    prove = prove_phase(launches, replayed, int_rate, lat_ms, imad_ns)
     dense = {k: launches["prove"][k] for k in PROVE_G1_LAUNCHES}
     if dense != PROVE_G1_LAUNCHES:
         raise AssertionError(f"the prove launched {dense}, not {PROVE_G1_LAUNCHES}")
@@ -1711,6 +1855,8 @@ def main() -> int:
         "fq_product_fmul_chain_us": chain_diag["fq_product_fmul_chain_us"],
         "fq_product_chain_bound_us": chain_diag["fq_product_chain_bound_us"],
         "prove_median_s": prove["value"], "prove_runs_s": prove["runs"],
+        "fr_copies_per_prove": prove["prove_fr_copies"],
+        "fr_mul_launches_per_prove": launches["prove"]["fr_mul"],
         "profiled_device_busy_s": prove["profile"]["device_busy_s"],
         "profiled_busy_share": prove["profile"]["busy_share"],
         **{f"{k}_device_s_launches": prove["profile"][f"{k}_device_s_launches"]
@@ -1769,7 +1915,10 @@ def main() -> int:
     zero += [f"{k} (exp_fieldmul)" for k in FIELDMUL_KERNELS if not launches["exp_fieldmul"][k]]
     if zero:
         raise AssertionError(f"kernels not launched on the main paths: {zero}")
-    rows = {f"fr_{r['op']}": dict(r, **cuda_fr.attributes(F.spec, r["op"])) for r in fr_rows}
+    if prove["prove_fr_copies"]:
+        raise AssertionError(f"the elementwise wrapper copied {prove['prove_fr_copies']} "
+                             "operands in the dense prove")
+    rows = {f"fr_{r['op']}": r for r in fr_rows}
     phase_attrs = cuda_sumcheck.attributes()
     rows["sumcheck_product_phase"] = dict(phase_row, **phase_attrs["cluster"],
                                           head_kernel=phase_attrs["head"])
@@ -1791,7 +1940,9 @@ def main() -> int:
             row["bound_kind"] = r["bound_kind"]
         if "device_ms" in r:  # the kernel's own time where events also hold the host's
             row["device_ms"] = r["device_ms"]
-        for key in ("cluster", "smem_bytes", "head_kernel"):  # the phase kernel's launch
+        # the phase kernel's launch; the elementwise kernels' unstaged time and staged registers
+        for key in ("cluster", "smem_bytes", "head_kernel",
+                    "unstaged_device_ms", "staged_registers", "staged_spill_bytes"):
             if key in r:
                 row[key] = r[key]
         if name in OFF_PATH:

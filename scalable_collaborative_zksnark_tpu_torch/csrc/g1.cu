@@ -1,14 +1,11 @@
-// G1 point kernels for Hopper (sm_90a), on the group law of g1.cuh and,
-// for every kernel the leader-mode prove launches, its team form in
-// g1_team.cuh.
+// G1 point kernels for Hopper (sm_90a), on the team form of the group
+// law (g1_team.cuh).
 //
 // Replaces curves/pallas_g1.py:
 //   add_team_kernel      _add_kernel, op add (_point_call): a team of
 //                        kAddTeam lanes per point;
-//   point_op_kernel      _add_kernel, op add_mixed, and _double_kernel:
-//                        one thread per point (neither is launched on the
-//                        leader-mode prove, so they stay one-thread
-//                        kernels on fmul);
+//   point_op_team_kernel _add_kernel, op add_mixed, and _double_kernel:
+//                        a team of kPointOpTeam lanes per point;
 //   masked_op_team_kernel _add_masked_kernel and _add_reset_kernel (the
 //                        same _point_call site): a mixed add under a
 //                        per-point mask, a team of kMaskedTeam lanes per
@@ -52,6 +49,17 @@
 //   2-lane team was faster in a probe on an H100 (fewer products repeated
 //   on idle lanes), but the prove has only 4 adds that wide, so there is
 //   one kernel.  160 registers, no spill.
+// * point_op_team_kernel: add_mixed and double, neither launched on the
+//   leader-mode prove, in the layout of add_team_kernel on kPointOpTeam =
+//   2 lanes a point: the mixed add in 6 rounds (levels of 2, 2, 2, 3 and
+//   2 products), the double in 5 (3, 3, 1).  At the size that times them,
+//   65,542 points, they are bound by the products the lanes run, not by
+//   one team's chain, and a 4-lane team repeats products on idle lanes
+//   (20 lane-products a mixed add where 2 lanes run 12; 12 a double where
+//   2 run 10).  In probes on an H100 (device time on 65,542 points) the
+//   mixed add took 0.049 ms on 2 lanes, 0.073 on 4, 0.156 one thread a
+//   point on fmul; the double 0.038 on 2 lanes, 0.052 on 4, 0.044 one
+//   thread on fmul, against bounds of 0.025 and 0.016 ms by products.
 // * accumulate_team_kernel: kScanTeam = 2 lanes a scan lane.  The mixed
 //   add's levels are 2, 2, 2, 3 and 2 products wide, so a 2-lane team runs
 //   it in 6 rounds where a 4-lane team runs 5 with its third and fourth
@@ -102,9 +110,9 @@
 
 namespace {
 
-constexpr int kThreads = 64;  // one-thread kernels: few threads per block spread lanes over the SMs
 constexpr long long kSentinel = 0xFFFFFFFFll;  // key of padding entries
 constexpr int kAddTeam = 4;            // lanes a point of add_team_kernel
+constexpr int kPointOpTeam = 2;        // lanes a point of point_op_team_kernel
 constexpr int kScanTeam = 2;           // lanes a scan lane of accumulate_team_kernel
 constexpr int kMaskedTeam = 2;         // lanes a point of masked_op_team_kernel
 constexpr int kLadderTeam = 4;         // lanes a lane of scalar_mul_team_kernel
@@ -122,24 +130,6 @@ constexpr uint32_t kEntrySame = 1u << 30;   // key == the previous step's key
 constexpr uint32_t kEntryNeg = 1u << 29;    // negate the base's y
 constexpr uint32_t kEntryPid = kEntryNeg - 1u;
 
-// OP: 1 add_mixed, 2 double (the general add is add_team_kernel).
-template <int OP>
-__global__ void __launch_bounds__(kThreads)
-    point_op_kernel(Coords a, Coords b, OutCoords out, unsigned m, G1Const c) {
-  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  Pt p, r;
-  load_point(a, i, p);
-  if (OP == 2) {
-    g1_double(r, p, c);
-  } else {
-    Pt q;
-    load_point(b, i, q);
-    g1_add<true>(r, p, q, c);
-  }
-  store_point(out, i, r);
-}
-
 // out[i] = a[i] + b[i], one team of kAddTeam lanes per point.
 __global__ void __launch_bounds__(kTeamThreads)
     add_team_kernel(Coords a, Coords b, OutCoords out, unsigned m, G1Const c) {
@@ -150,6 +140,27 @@ __global__ void __launch_bounds__(kTeamThreads)
   load_point(a, i, p);
   load_point(b, i, q);
   team_add<false>(r, p, q, c, tm);
+  team_store(out, i, r, tm);
+}
+
+// out[i] = a[i] + b[i] with b[i] affine or infinity (OP 1, add_mixed), or
+// 2 a[i] (OP 2, double; b unused), one team of kPointOpTeam lanes per
+// point.
+template <int OP>
+__global__ void __launch_bounds__(kTeamThreads)
+    point_op_team_kernel(Coords a, Coords b, OutCoords out, unsigned m, G1Const c) {
+  const Team<kPointOpTeam> tm = Team<kPointOpTeam>::here();
+  const unsigned i = (blockIdx.x * blockDim.x + threadIdx.x) / kPointOpTeam;
+  if (i >= m) return;  // the whole team
+  Pt p, r;
+  load_point(a, i, p);
+  if (OP == 2) {
+    team_double(r, p, c, tm);
+  } else {
+    Pt q;
+    load_point(b, i, q);
+    team_add<true>(r, p, q, c, tm);
+  }
   team_store(out, i, r, tm);
 }
 
@@ -325,8 +336,6 @@ __global__ void fq_mul_chain_kernel(const int32_t* a, int n, int32_t* out, Field
   store_limbs<NQ>(out, x);
 }
 
-unsigned blocks(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
-
 // blocks of `threads` for `teams` teams of `width` lanes
 unsigned team_blocks(long long teams, int width, int threads = kTeamThreads) {
   return (unsigned)((teams * width + threads - 1) / threads);
@@ -347,12 +356,13 @@ extern "C" int sczk_g1_point_op(int op, const void* ax, const void* ay, const vo
   const OutCoords o = out_coords(ox, oy, oz);
   const G1Const c = consts_of(consts);
   auto s = static_cast<cudaStream_t>(stream);
+  const unsigned nb = team_blocks(m, op == 0 ? kAddTeam : kPointOpTeam);
   if (op == 0) {
-    add_team_kernel<<<team_blocks(m, kAddTeam), kTeamThreads, 0, s>>>(a, b, o, (unsigned)m, c);
+    add_team_kernel<<<nb, kTeamThreads, 0, s>>>(a, b, o, (unsigned)m, c);
   } else if (op == 1) {
-    point_op_kernel<1><<<blocks(m), kThreads, 0, s>>>(a, b, o, (unsigned)m, c);
+    point_op_team_kernel<1><<<nb, kTeamThreads, 0, s>>>(a, b, o, (unsigned)m, c);
   } else {
-    point_op_kernel<2><<<blocks(m), kThreads, 0, s>>>(a, b, o, (unsigned)m, c);
+    point_op_team_kernel<2><<<nb, kTeamThreads, 0, s>>>(a, b, o, (unsigned)m, c);
   }
   return (int)cudaGetLastError();
 }
@@ -430,8 +440,8 @@ extern "C" int sczk_imad_chain(const void* a, int n, void* out, void* stream) {
 extern "C" int sczk_g1_attrs(int which, int* out) {
   const void* fns[] = {
       reinterpret_cast<const void*>(&add_team_kernel),
-      reinterpret_cast<const void*>(&point_op_kernel<1>),
-      reinterpret_cast<const void*>(&point_op_kernel<2>),
+      reinterpret_cast<const void*>(&point_op_team_kernel<1>),
+      reinterpret_cast<const void*>(&point_op_team_kernel<2>),
       reinterpret_cast<const void*>(&accumulate_team_kernel),
       reinterpret_cast<const void*>(&scalar_mul_team_kernel),
       reinterpret_cast<const void*>(&masked_op_team_kernel<0>),

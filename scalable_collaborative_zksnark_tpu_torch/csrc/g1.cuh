@@ -3,23 +3,24 @@
 // Z = 0 is infinity), on the Fq word arithmetic of fr.cuh.
 //
 // The formulas are those of curves/pallas_g1.py (_double_t: dbl-2009-l;
-// _add_t: add-2007-bl, and madd-2007-bl for an affine second operand),
-// step by step in the same order.  Every field op returns a canonical
-// value, so each output is bit-identical to the JAX package's Curve.add,
-// add_mixed and double.  Where the TPU computes every case and selects
+// _add_t: add-2007-bl), step by step in the same order.  Every field op
+// returns a canonical value, so each output is bit-identical to the JAX
+// package's Curve.add and double.  Where the TPU computes every case and selects
 // per lane, a thread branches: infinity on either side returns the other
 // operand, an x-collision doubles (equal points) or returns infinity
 // (opposite points), and the doubling is computed only then.  Each output
 // is the one the select would give.
 //
-// The product is a template parameter (a type with a static `mul`), so
-// g1_chain.cu runs the same formulas on its low-latency product; every
-// kernel of g1.cu takes the default, fr.cuh's fmul.
+// The product is a template parameter (a type with a static `mul`):
+// g1_chain.cu's bucket-serial kernel runs these one-thread formulas on its
+// low-latency product (g1_team.cuh's FqMulCC); the kernels of g1.cu and
+// Horner run them by dependency levels on lane teams (g1_team.cuh, whose
+// mixed add follows madd-2007-bl).
 //
-// Cost in field products: mixed add 11, general add 16, double 7.  One
-// point is 36 words; an add keeps about ten Fq temporaries live, so the
-// kernels run few threads per SM and are bound by the latency of their
-// dependent products (see g1.cu).
+// Cost in field products: general add 16, double 7.  One point is 36
+// words; an add keeps about ten Fq temporaries live, so a thread running
+// these formulas is bound by the latency of its dependent products (see
+// g1.cu).
 #pragma once
 
 #include <cstddef>
@@ -40,14 +41,6 @@ inline G1Const g1_const(const uint32_t* host) {
   for (int j = 0; j < NQ; ++j) c.one[j] = host[NQ + 1 + j];
   return c;
 }
-
-// fr.cuh's CIOS product, the default of the group law below.
-struct Fmul {
-  __device__ __forceinline__ static void mul(uint32_t* r, const uint32_t* a, const uint32_t* b,
-                                             const FieldConst<NQ>& f) {
-    fmul<NQ>(r, a, b, f);
-  }
-};
 
 struct Pt {
   uint32_t x[NQ], y[NQ], z[NQ];
@@ -76,7 +69,7 @@ __device__ __forceinline__ void set_infinity(Pt& p, const G1Const& c) {
 }
 
 // dbl-2009-l; doubling infinity keeps Z = 0.  r may alias p.
-template <class M = Fmul>
+template <class M>
 __device__ __forceinline__ void g1_double(Pt& r, const Pt& p, const G1Const& c) {
   const FieldConst<NQ>& f = c.f;
   const bool inf = fq_is_zero(p.z);
@@ -112,10 +105,9 @@ __device__ __forceinline__ void g1_double(Pt& r, const Pt& p, const G1Const& c) 
   }
 }
 
-// p1 + p2, complete; MIXED takes p2 with Z2 in {0, 1} (affine or
-// infinity).  Returns 1 when the sum was a doubling (an x-collision of
-// equal points), else 0.  r may alias p1 or p2.
-template <bool MIXED, class M = Fmul>
+// p1 + p2, complete.  Returns 1 when the sum was a doubling (an
+// x-collision of equal points), else 0.  r may alias p1 or p2.
+template <class M>
 __device__ __forceinline__ int g1_add(Pt& r, const Pt& p1, const Pt& p2, const G1Const& c) {
   if (fq_is_zero(p1.z)) {
     r = p2;
@@ -128,15 +120,10 @@ __device__ __forceinline__ int g1_add(Pt& r, const Pt& p1, const Pt& p2, const G
   const FieldConst<NQ>& f = c.f;
   uint32_t Z1Z1[NQ], Z2Z2[NQ], U1[NQ], S1[NQ], U2[NQ], S2[NQ], H[NQ], R[NQ];
   M::mul(Z1Z1, p1.z, p1.z, f);
-  if (MIXED) {
-    fq_copy(U1, p1.x);
-    fq_copy(S1, p1.y);
-  } else {
-    M::mul(Z2Z2, p2.z, p2.z, f);
-    M::mul(U1, p1.x, Z2Z2, f);
-    M::mul(S1, p1.y, p2.z, f);
-    M::mul(S1, S1, Z2Z2, f);
-  }
+  M::mul(Z2Z2, p2.z, p2.z, f);
+  M::mul(U1, p1.x, Z2Z2, f);
+  M::mul(S1, p1.y, p2.z, f);
+  M::mul(S1, S1, Z2Z2, f);
   M::mul(U2, p2.x, Z1Z1, f);
   M::mul(S2, p2.y, p1.z, f);
   M::mul(S2, S2, Z1Z1, f);
@@ -166,16 +153,11 @@ __device__ __forceinline__ int g1_add(Pt& r, const Pt& p1, const Pt& p2, const G
   M::mul(t, S1, J, f);
   fadd<NQ>(t, t, t, f);
   fsub<NQ>(Y3, Y3, t, f);  // Y3 = r2 (V - X3) - 2 S1 J
-  if (MIXED) {
-    M::mul(Z3, p1.z, H, f);
-    fadd<NQ>(Z3, Z3, Z3, f);  // Z3 = 2 Z1 H
-  } else {
-    fadd<NQ>(t, p1.z, p2.z, f);
-    M::mul(t, t, t, f);
-    fsub<NQ>(t, t, Z1Z1, f);
-    fsub<NQ>(t, t, Z2Z2, f);
-    M::mul(Z3, t, H, f);  // Z3 = ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) H
-  }
+  fadd<NQ>(t, p1.z, p2.z, f);
+  M::mul(t, t, t, f);
+  fsub<NQ>(t, t, Z1Z1, f);
+  fsub<NQ>(t, t, Z2Z2, f);
+  M::mul(Z3, t, H, f);  // Z3 = ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) H
   fq_copy(r.x, X3);
   fq_copy(r.y, Y3);
   fq_copy(r.z, Z3);

@@ -94,8 +94,8 @@ __global__ void __launch_bounds__(kSegThreads)
     for (int k = hi; k >= lo; --k) {
       Pt B;
       load_point(buckets, (size_t)k * M + lane, B);
-      g1_add<false, FqMulCC>(acc, acc, B, c);
-      g1_add<false, FqMulCC>(tot, tot, acc, c);
+      g1_add<FqMulCC>(acc, acc, B, c);
+      g1_add<FqMulCC>(tot, tot, acc, c);
     }
   }
   part_r[t] = acc;
@@ -103,24 +103,24 @@ __global__ void __launch_bounds__(kSegThreads)
   if (seg != 0 || lane >= M) return;
   Pt& sum = part_v[ll];  // sum_s V_s
   if (S > 1) {
-    for (unsigned s = 1; s < S; ++s) g1_add<false, FqMulCC>(sum, sum, part_v[s * LB + ll], c);
+    for (unsigned s = 1; s < S; ++s) g1_add<FqMulCC>(sum, sum, part_v[s * LB + ll], c);
     // sum_{s>=1} s R_s by the running suffix over R_{S-1} .. R_1: the
     // suffix in R_{S-1}'s slot, the weighted sum in V_{S-1}'s (read above)
     Pt& suf = part_r[(S - 1) * LB + ll];
     Pt& wsum = part_v[(S - 1) * LB + ll];
     wsum = suf;
     for (int s = (int)S - 2; s >= 1; --s) {
-      g1_add<false, FqMulCC>(suf, suf, part_r[s * LB + ll], c);
-      g1_add<false, FqMulCC>(wsum, wsum, suf, c);
+      g1_add<FqMulCC>(suf, suf, part_r[s * LB + ll], c);
+      g1_add<FqMulCC>(wsum, wsum, suf, c);
     }
     // L * wsum, MSB first, in R_0's slot (R_0 has weight 0)
     Pt& scaled = part_r[ll];
     scaled = wsum;
     for (int b = 30 - __clz(L); b >= 0; --b) {
       g1_double<FqMulCC>(scaled, scaled, c);
-      if ((L >> b) & 1u) g1_add<false, FqMulCC>(scaled, scaled, wsum, c);
+      if ((L >> b) & 1u) g1_add<FqMulCC>(scaled, scaled, wsum, c);
     }
-    g1_add<false, FqMulCC>(sum, sum, scaled, c);
+    g1_add<FqMulCC>(sum, sum, scaled, c);
   }
   store_point(out, lane, sum);
 }

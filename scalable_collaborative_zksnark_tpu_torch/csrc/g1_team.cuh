@@ -21,8 +21,9 @@
 // so a team takes the infinity and x-collision branches as one.  Each
 // team shuffles under its own lanes' mask, so the teams of one warp may
 // take different branches.  Every field op returns the canonical value,
-// so each result is bit-equal to g1.cuh's g1_add and g1_double (and so
-// to the plain versions of curves/cuda_g1.py).
+// so each result is bit-equal to the plain versions of curves/cuda_g1.py
+// (and, for the general add and the double, to g1.cuh's g1_add and
+// g1_double).
 //
 // fq_mul_cc wants canonical operands (a, b < p): every fadd/fsub output
 // is canonical, and so is every point the kernels load.
@@ -33,7 +34,7 @@
 #include "fq_chain.cuh"
 #include "g1.cuh"
 
-// The group law of g1.cuh on fq_mul_cc (g1_add<MIXED, FqMulCC>).
+// The group law of g1.cuh on fq_mul_cc (g1_add<FqMulCC>).
 struct FqMulCC {
   __device__ __forceinline__ static void mul(uint32_t* r, const uint32_t* a, const uint32_t* b,
                                              const FieldConst<NQ>& f) {
@@ -130,8 +131,8 @@ __device__ __forceinline__ void team_double(Pt& r, const Pt& p, const G1Const& c
   }
 }
 
-// Complete p1 + p2 as g1_add<MIXED>, by levels: MIXED takes p2 with Z2
-// in {0, 1}.  Returns 1 when the sum was a doubling (an x-collision of
+// Complete p1 + p2 by levels, as g1_add (add-2007-bl) or, with MIXED,
+// madd-2007-bl for p2 with Z2 in {0, 1}.  Returns 1 when the sum was a doubling (an x-collision of
 // equal points), else 0.  r may alias p1.
 template <bool MIXED, int W>
 __device__ __forceinline__ int team_add(Pt& r, const Pt& p1, const Pt& p2, const G1Const& c,

@@ -8,12 +8,12 @@ with the scan and repair around it in ``primitives/msm.py``
 (``accumulate``); ``_scalar_mul_kernel`` (``scalar_mul``);
 ``_horner_kernel`` (``horner``); ``_bucket_serial_kernel``
 (``bucket_serial``).  The kernels are ``csrc/g1.cu`` on the group law of
-``csrc/g1.cuh``, and ``csrc/g1_chain.cu`` (Horner, bucket-serial); the
-general ``add``, the masked adds, the accumulate, the ladder and Horner
-run the same formulas by dependency levels on a team of lanes
-(``csrc/g1_team.cuh``), on the low-latency product of
-``csrc/fq_chain.cuh``; see those files for the design and what bounds it.  Bucket-serial runs a segmented schedule
-(``bucket_segments``), which its plain version follows step for step.
+``csrc/g1.cuh``, and ``csrc/g1_chain.cu`` (Horner, bucket-serial); every
+kernel but bucket-serial runs the formulas by dependency levels on a team
+of lanes (``csrc/g1_team.cuh``), all of them on the low-latency product
+of ``csrc/fq_chain.cuh``; see those files for the design and what bounds
+it.  Bucket-serial runs a segmented schedule (``bucket_segments``), which
+its plain version follows step for step.
 
 A point is a tuple ``(x, y, z)`` of ``int32 [..., 24]`` Fq Montgomery
 limbs (Jacobian; z = 0 is infinity, written (0, 1, 0)).  A CPU tensor
@@ -468,14 +468,15 @@ def add(spec: FieldSpec, p1: tuple, p2: tuple) -> tuple:
 
 
 def add_mixed(spec: FieldSpec, p1: tuple, p2: tuple) -> tuple:
-    """Complete mixed add, p2 with z in {0, 1}: kernel on CUDA, plain on the CPU."""
+    """Complete mixed add, p2 with z in {0, 1}: on CUDA one launch, a team
+    of 2 lanes a point; plain on the CPU."""
     if _on_cpu(*p1, *p2):
         return add_mixed.plain(spec, p1, p2)
     return _launch_point_op(add_mixed, spec, p1, p2)
 
 
 def double(spec: FieldSpec, pt: tuple) -> tuple:
-    """2 * pt: kernel on CUDA, plain on the CPU."""
+    """2 * pt: on CUDA one launch, a team of 2 lanes a point; plain on the CPU."""
     if _on_cpu(*pt):
         return double_plain(spec, pt)
     return _launch_point_op(double, spec, pt, None)

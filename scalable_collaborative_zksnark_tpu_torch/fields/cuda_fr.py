@@ -2,8 +2,8 @@
 
 Replaces ``fields/pallas_fr.py`` (``_mul_kernel``, ``_add_kernel``,
 ``_sub_kernel`` behind ``pallas_fr.binary``).  The kernels are ``csrc/fr.cu`` on the
-word arithmetic of ``csrc/fr.cuh``; see that file for the design and
-what bounds it.
+carry-chain arithmetic of ``csrc/fq_chain.cuh``; see that file for the
+design and what bounds it.
 
 Layout at the boundary: ``int32 [..., L]`` 16-bit limbs in Montgomery form
 (L = 16 for Fr, 24 for Fq).  Inputs must be canonical (< p); outputs are
@@ -11,6 +11,10 @@ canonical.  ``mul``/``add``/``sub`` broadcast their operands as
 ``torch.broadcast_tensors`` does.  A CPU tensor goes through the plain
 version (``*_plain``), a CUDA tensor through the kernel; a failed build or
 launch raises.  Each wrapper counts its kernel launches in ``.launches``.
+The kernel reads each operand in place through its strides
+(``kernel_operands``); ``copies`` counts the operands it had to
+materialise instead (a limb axis that is not unit-stride, or more than
+``MAX_RANK`` coalesced dims).
 
 The plain versions compute in ``int64`` on 16-bit limbs (Montgomery
 reduction for the product); they are the reference the tests and
@@ -30,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -179,10 +184,17 @@ def mul_tiled_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.
 # CUDA kernels
 # ---------------------------------------------------------------------------
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"sczk_fr_binary": [_I, _I, _VP, _VP, _VP, _I, _I, _I, _VP, _VP],
-               "sczk_fr_attrs": [_I, _I, _VP],
+_SIGNATURES = {"sczk_fr_binary": [_I, _I, _VP, _VP, _VP, _I, _VP, _I, _VP, _VP],
+               "sczk_fr_attrs": [_I, _I, _I, _VP],
                "sczk_fr_mul_strided": [_I, _VP, _VP, _VP, _I, _VP, _VP],
-               "sczk_fr_strided_attrs": [_I, _VP]}
+               "sczk_fr_strided_attrs": [_I, _VP],
+               "sczk_fr_empty": [_VP]}
+MAX_RANK = 4  # coalesced batch dims a launch takes (csrc/fr.cu kRank)
+# outputs from which a launch stages its dense operands in shared memory: the
+# smallest size from which a staged launch was no slower than a small one in
+# every op of Fr and Fq on an H100 (scripts/chain_bench.py stage_ms, 1 to
+# 65,536 outputs; at 192, Fr was 10% slower staged)
+STAGE_MIN = 256
 TILE_SHAPE = (8, 512)
 TILE = TILE_SHAPE[0] * TILE_SHAPE[1]  # elements of one tile of the tiled layout
 # the strided products: layout number in fr.cu, and the multiple of
@@ -197,22 +209,99 @@ def field_consts(spec: FieldSpec) -> np.ndarray:
     return np.array(words + [spec.n0inv32], dtype=np.uint32)
 
 
-def kernel_operand(x: torch.Tensor, shape: torch.Size):
-    """(contiguous, 16-byte aligned tensor, period in elements) for a kernel
-    operand broadcast to ``shape``.
+@functools.lru_cache(maxsize=None)
+def _consts_ptr(spec: FieldSpec) -> int:
+    return field_consts(spec).ctypes.data  # the cached array outlives every call
 
-    An operand whose non-unit shape is a trailing block of ``shape`` (a
-    constant, a twiddle table) is passed as is and read at ``i % period``;
-    any other broadcast is materialised."""
-    dims = list(x.shape)
-    while len(dims) > 1 and dims[0] == 1:
-        dims.pop(0)
-    if tuple(dims) != tuple(shape[len(shape) - len(dims):]):
-        x = x.expand(shape)
-    x = x.contiguous()
-    if x.data_ptr() % 16:
-        x = x.clone()
-    return x, x.numel() // shape[-1]
+
+def broadcast_shape(sa, sb) -> tuple:
+    """The shape two operands of ``sa`` and ``sb`` broadcast to, as
+    ``torch.broadcast_shapes`` gives it (a tenth of its host time)."""
+    if sa == sb:
+        return tuple(sa)
+    n = max(len(sa), len(sb))
+    sa, sb = (1,) * (n - len(sa)) + tuple(sa), (1,) * (n - len(sb)) + tuple(sb)
+    out = []
+    for x, y in zip(sa, sb):
+        if x != y and 1 not in (x, y):
+            raise ValueError(f"shapes {sa} and {sb} do not broadcast")
+        out.append(y if x == 1 else x)
+    return tuple(out)
+
+
+def coalesce(dims, strides: list) -> tuple[list, list]:
+    """The batch dims of a contiguous output and each operand's strides
+    along them, coalesced as PyTorch's TensorIterator does: dims of size 1
+    dropped, and a dim merged into the one outside it where every
+    operand's strides allow (the outer stride is the inner one times the
+    inner size).  Returns (dims, strides) with at least one dim."""
+    out_dims, out_strides = [], [[] for _ in strides]
+    for k, n in enumerate(dims):
+        if n == 1:
+            continue
+        if out_dims and all(o[-1] == s[k] * n for o, s in zip(out_strides, strides)):
+            out_dims[-1] *= n
+            for o, s in zip(out_strides, strides):
+                o[-1] = s[k]
+        else:
+            out_dims.append(n)
+            for o, s in zip(out_strides, strides):
+                o.append(s[k])
+    if not out_dims:
+        return [1], [[0] for _ in strides]
+    return out_dims, out_strides
+
+
+def _batch_strides(x: torch.Tensor, shape) -> list:
+    """x's strides along the batch dims of ``shape``, 0 where it broadcasts."""
+    pad = len(shape) - x.dim()
+    sizes, strides = x.shape, x.stride()
+    return [0 if k < pad or sizes[k - pad] == 1 else strides[k - pad]
+            for k in range(len(shape) - 1)]
+
+
+def _materialise(x: torch.Tensor, shape) -> torch.Tensor:
+    global copies
+    copies += 1
+    return x.expand(shape).contiguous()
+
+
+def kernel_operands(shape, *xs: torch.Tensor) -> tuple[list, list]:
+    """(dims, [(operand, strides)]) for a launch whose output is the
+    contiguous ``shape`` [..., L]: the output's batch dims coalesced
+    (``coalesce``), and each operand as it is, read at ``data_ptr()`` plus
+    the sum over dims of coordinate times stride int32 slots (0 where it
+    broadcasts), its L limbs contiguous.  Transposed views, stepped slices,
+    broadcasts in any dim and bases that are not 16-byte aligned are read
+    in place.  An operand whose limb axis is not unit-stride, or one that
+    leaves more than ``MAX_RANK`` coalesced dims (the operand that keeps
+    the most dims on its own goes first), is materialised and counted in
+    ``copies``."""
+    xs = [x if x.shape[-1] == shape[-1] and x.stride(-1) == 1 else _materialise(x, shape)
+          for x in xs]
+    while True:
+        strides = [_batch_strides(x, shape) for x in xs]
+        dims, strides = coalesce(shape[:-1], strides)
+        if len(dims) <= MAX_RANK:
+            return dims, list(zip(xs, strides))
+        own = [len(coalesce(shape[:-1], [_batch_strides(x, shape)])[0]) for x in xs]
+        k = own.index(max(own))
+        xs[k] = _materialise(xs[k], shape)
+
+
+def launch_mode(a: torch.Tensor, b: torch.Tensor) -> str:
+    """The instance of ``binary_kernel`` a launch on a and b runs, as
+    ``csrc/fr.cu``'s ``launch`` picks it: "small" below ``STAGE_MIN``
+    outputs where both operands take 16-byte loads (the base 16-byte
+    aligned, the stride of every dim of more than one element a multiple
+    of 4 slots), else "staged".  For reports; it launches nothing."""
+    shape = broadcast_shape(a.shape, b.shape)
+    if math.prod(shape[:-1]) >= STAGE_MIN:
+        return "staged"
+    dims, operands = kernel_operands(shape, a, b)
+    vec = all(x.data_ptr() % 16 == 0 and all(s % 4 == 0 for n, s in zip(dims, st) if n > 1)
+              for x, st in operands)
+    return "small" if vec else "staged"
 
 
 def _check_cuda(spec: FieldSpec, *xs: torch.Tensor):
@@ -223,25 +312,38 @@ def _check_cuda(spec: FieldSpec, *xs: torch.Tensor):
             raise ValueError(f"limb axis {x.shape[-1]} != {spec.num_limbs} for {spec.name}")
 
 
-def _launch(wrapper, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    _check_cuda(spec, a, b)
-    shape = torch.broadcast_shapes(a.shape, b.shape)
-    m = shape.numel() // shape[-1]
+def run_binary(lib, op: str, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, stream,
+               staged: bool | None = None) -> torch.Tensor:
+    """One ``sczk_fr_binary`` call of ``lib``: ``op`` of a and b broadcast,
+    into a new contiguous tensor; ``staged`` (default: at least
+    ``STAGE_MIN`` outputs) stages dense operands through shared memory; a
+    launch with an operand that does not take 16-byte loads stages always.
+    Checks the C entry's return code and nothing else: ``_launch`` is the
+    checked wrapper (the host emulation of the tests calls this with its
+    own ``lib``)."""
+    shape = broadcast_shape(a.shape, b.shape)
     out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    m = math.prod(shape[:-1])
     if m == 0:
         return out
     if m >= 2**31:
         raise ValueError(f"{m} elements exceed one launch")
-    a, pa = kernel_operand(a, shape)
-    b, pb = kernel_operand(b, shape)
-    lib = cuda_build.library("fr", _SIGNATURES)
-    consts = field_consts(spec)
-    err = lib.sczk_fr_binary(
-        _OPS[wrapper.__name__], spec.num_words, a.data_ptr(), b.data_ptr(), out.data_ptr(),
-        m, pa, pb, consts.ctypes.data, torch.cuda.current_stream(a.device).cuda_stream,
-    )
-    wrapper.launches += 1
-    cuda_build.check(err, f"fr {wrapper.__name__}")
+    dims, ((a, sa), (b, sb)) = kernel_operands(shape, a, b)
+    layout = (ctypes.c_longlong * (3 * len(dims)))(*dims, *sa, *sb)
+    if staged is None:
+        staged = m >= STAGE_MIN
+    err = lib.sczk_fr_binary(_OPS[op], spec.num_words, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                             len(dims), layout, int(staged), _consts_ptr(spec), stream)
+    cuda_build.check(err, f"fr {op}")
+    return out
+
+
+def _launch(wrapper, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    _check_cuda(spec, a, b)
+    out = run_binary(cuda_build.library("fr", _SIGNATURES), wrapper.__name__, spec, a, b,
+                     torch.cuda.current_stream(a.device).cuda_stream)
+    if out.numel():
+        wrapper.launches += 1
     return out
 
 
@@ -323,19 +425,29 @@ def mul_tiled(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     return _launch_strided(mul_tiled, spec, a, b)
 
 
-def attributes(spec: FieldSpec, op: str) -> dict:
+def empty_launch(device) -> None:
+    """One launch of a kernel that does nothing, on ``device``'s current
+    stream: a probe of the device time every launch costs."""
+    lib = cuda_build.library("fr", _SIGNATURES)
+    cuda_build.check(lib.sczk_fr_empty(torch.cuda.current_stream(device).cuda_stream),
+                     "empty launch")
+
+
+def attributes(spec: FieldSpec, op: str, staged: bool = False) -> dict:
     """Registers and spill (local) bytes per thread of ``op``'s kernel for
-    ``spec``'s width (``mul``, ``add``, ``sub``, or a strided product),
+    ``spec``'s width (``mul``, ``add``, ``sub``: a ``staged`` launch or a
+    small one; or a strided product),
     from the card."""
     out = np.zeros(2, dtype=np.int32)
     lib = cuda_build.library("fr", _SIGNATURES)
     if op in _LAYOUTS:
         err = lib.sczk_fr_strided_attrs(_LAYOUTS[op][0], out.ctypes.data)
     else:
-        err = lib.sczk_fr_attrs(_OPS[op], spec.num_words, out.ctypes.data)
+        err = lib.sczk_fr_attrs(_OPS[op], spec.num_words, int(staged), out.ctypes.data)
     cuda_build.check(err, f"fr attributes of {op}")
     return {"registers": int(out[0]), "spill_bytes": int(out[1])}
 
 
 mul.launches = add.launches = sub.launches = 0
 mul_limb_major.launches = mul_tiled.launches = 0
+copies = 0  # operands ``kernel_operands`` materialised

@@ -48,8 +48,26 @@ Prints one JSON object:
   calls made) and ``events`` as for ``add_ms``;
 * ``fr_chain_us``: where the package has the probes, one Fr product in a
   one-thread chain, ``fmul<8>`` and the carry-chain ``fr_mul_cc``;
+* ``elementwise_ms``: ``cuda_fr.mul``, ``add`` and ``sub`` on seeded
+  random operands (contiguous) at each op's three commonest shapes in the
+  (16, 8) prove (Fr; ``--elementwise`` adds ``M`` elements, default 2^20,
+  in Fr and Fq), ``device`` (every kernel and copy the call makes; null
+  where the profile holds none) and ``events`` as for ``add_ms``;
+* ``point_ms``: ``cuda_g1.add_mixed`` (an affine right operand) and
+  ``cuda_g1.double`` on ``--points`` seeded random points (default
+  65,542), ``device`` and ``events`` as for ``add_ms``;
+* ``empty_launch_ms``: on the card, the device time of one empty kernel
+  launch (``device`` as for ``add_ms``);
+* ``stage_ms``: on the card, the device time a launch of the elementwise
+  kernel (``cuda_fr.run_binary``) on seeded random contiguous operands,
+  ``small`` and ``staged`` (``null`` where the profile holds none), for
+  each op at its three commonest (16, 8) prove shapes (Fr) and at each
+  ``--stage`` size ``M`` (Fr and Fq): where staging starts to pay, which
+  ``cuda_fr.STAGE_MIN`` is taken from;
 * ``prove_median_s``: the (16, 8) leader-mode prove through ``bench.run``
-  (``--prove-repeat`` proves after a warm-up; ``--no-prove`` skips it);
+  (``--prove-repeat`` proves after a warm-up; ``--no-prove`` skips it),
+  and ``prove_fr_copies``: the operands the elementwise wrapper
+  materialised in one more dense prove (``cuda_fr.copies``);
 * with ``--sass``, ``sass_ops``: the instructions of the one-thread chain
   kernels' SASS by opcode (``cuobjdump -sass`` of the built libraries),
   what one product compiles to.
@@ -81,7 +99,9 @@ from .. import bench, cuda_build
 from ..curves import cuda_g1
 from ..curves.g1 import bls12_381_g1, map_points
 from ..device import DEFAULT, resolve, sync
+from ..fields import cuda_fr
 from ..fields.fr import get_field
+from ..hyperplonk.collaborative import dhyperplonk
 from ..primitives import cuda_sumcheck, msm
 from ..primitives.poly_comm import rand_points_flat
 
@@ -214,6 +234,13 @@ MASKED = ((107328, 0.0162), (165120, 0.0164), (33024, 0.0175), (536640, 0.0063),
 # the (16, 8) prove's ladder shapes, then 1,027 lanes
 LADDERS = ((14, 16), (21, 16), (192, 16), (1027, 16))
 ACCUMULATE_CALLS = (("msm", 8192, 3), ("ragged", 4096, 3))
+# the (16, 8) prove's three commonest (a, b) batch shapes of each Fr op
+ELEMENTWISE_SHAPES = {"mul": (((1, 1), (1, 1)), ((1, 3, 1), ()), ((10, 3, 1), ())),
+                      "add": (((10, 3, 1),) * 2, ((1, 3, 1),) * 2, ((1, 3, 2),) * 2),
+                      "sub": (((1, 3, 2),) * 2, ((1, 3, 1),) * 2, ((1, 3, 4),) * 2)}
+ELEMENTWISE_LARGE = (1 << 20,)
+STAGE_SIZES = (1, 64, 96, 128, 160, 192, 256, 512, 1024, 2048, 4096, 8192, 16384, 65536)
+POINTS = 65542
 PHASES = ((6, 1 << 13), (1, 1 << 21), (1, 1 << 25))
 
 
@@ -224,14 +251,33 @@ def _timed(call, dev: torch.device, reps: int, launches: int = 0) -> dict:
 def run(device=DEFAULT, horner=((32, 3, 8), (43, 39, 6)), buckets=((33, 1677),),
         segments=(1, 2, 4, 8), reps: int = 10, prove_repeat: int = 5, sass: bool = False,
         add_lanes=ADD_LANES, accumulate=ACCUMULATE_CALLS, masked=MASKED,
-        ladders=LADDERS, phases=PHASES) -> dict:
+        ladders=LADDERS, phases=PHASES, elementwise=ELEMENTWISE_LARGE,
+        points: int = POINTS, stage=STAGE_SIZES) -> dict:
     dev = resolve(device)
     curve = bls12_381_g1(dev)
     spec = curve.fq.spec
     out = {"card": _card(dev), "add_ms": {}, "masked_ms": {}, "ladder_ms": {},
            "accumulate_ms": {}, "horner_ms": {}, "bucket_serial_ms": {}, "fq_chain_us": {},
-           "phase_ms": {}, "fr_chain_us": {}}
+           "phase_ms": {}, "fr_chain_us": {}, "elementwise_ms": {}, "point_ms": {},
+           "stage_ms": {}}
     Fr = get_field("bls12_381_fr", device=dev)
+    Fq = get_field("bls12_381_fq", device=dev)
+    for op, pairs in ELEMENTWISE_SHAPES.items():
+        kern = getattr(cuda_fr, op)
+        cases = [(Fr, sa, sb) for sa, sb in pairs]
+        cases += [(F, (m,), (m,)) for m in elementwise for F in (Fr, Fq)]
+        for k, (F, sa, sb) in enumerate(cases):
+            a = F.random(sa, 151 + 2 * k).contiguous()
+            b = F.random(sb, 152 + 2 * k).contiguous()
+            out["elementwise_ms"][f"{F.spec.name} {op} {list(sa)}x{list(sb)}"] = _timed(
+                lambda: kern(F.spec, a, b), dev, reps)
+    if points:
+        p1, p2 = _points(curve, (points,), 161), rand_points_flat(curve, points, 162)
+        out["point_ms"]["add_mixed"] = _timed(lambda: cuda_g1.add_mixed(spec, p1, p2), dev, reps)
+        out["point_ms"]["double"] = _timed(lambda: cuda_g1.double(spec, p1), dev, reps)
+    if dev.type == "cuda":
+        out["empty_launch_ms"] = _device_ms(lambda: cuda_fr.empty_launch(dev), dev, reps, 1)
+        out["stage_ms"] = stage_rows(Fr, Fq, stage, dev, reps)
     for k, (B, M) in enumerate(phases):  # contiguous tables: the call launches the phase alone
         f = Fr.random((B, M), 131 + 2 * k).contiguous()
         g = Fr.random((B, M), 132 + 2 * k).contiguous()
@@ -293,10 +339,38 @@ def run(device=DEFAULT, horner=((32, 3, 8), (43, 39, 6)), buckets=((33, 1677),),
         out["sass_ops"] = {kernel: sass_ops(str(cuda_build._target(lib)), kernel)
                            for lib, kernel in probes if cuda_build._target(lib).exists()}
     if prove_repeat:
-        report, _ = bench.run(16, 8, dev, repeat=prove_repeat)
+        report, (pk, net, _) = bench.run(16, 8, dev, repeat=prove_repeat)
         out.update(prove_median_s=report["value"], prove_runs_s=report["runs"],
-                   prove_digest=report["digest"], prove_conformance=report["conformance"])
+                   prove_digest=report["digest"], prove_conformance=report["conformance"],
+                   prove_fr_copies=prove_copies(pk, net))
     return out
+
+
+def prove_copies(pk, net) -> int:
+    """Operands the elementwise wrapper materialised over one dense (16, 8)
+    prove (``cuda_fr.copies``)."""
+    before = cuda_fr.copies
+    dhyperplonk(16, pk, net)
+    return cuda_fr.copies - before
+
+
+def stage_rows(Fr, Fq, sizes, dev: torch.device, reps: int) -> dict:
+    """``stage_ms``: each op's small and staged launch at its commonest
+    prove shapes (Fr) and at each of ``sizes`` (Fr and Fq)."""
+    lib = cuda_build.library("fr", cuda_fr._SIGNATURES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rows = {}
+    for op, pairs in ELEMENTWISE_SHAPES.items():
+        cases = [(Fr, sa, sb) for sa, sb in pairs]
+        cases += [(F, (m,), (m,)) for m in sizes for F in (Fr, Fq)]
+        for k, (F, sa, sb) in enumerate(cases):
+            a = F.random(sa, 171 + 2 * k).contiguous()
+            b = F.random(sb, 172 + 2 * k).contiguous()
+            rows[f"{F.spec.name} {op} {list(sa)}x{list(sb)}"] = {
+                how: _device_ms(lambda staged=staged: cuda_fr.run_binary(
+                    lib, op, F.spec, a, b, stream, staged), dev, reps, 1)
+                for how, staged in (("small", False), ("staged", True))}
+    return rows
 
 
 def _shapes(text: str, n: int):
@@ -347,6 +421,14 @@ def main(argv=None) -> int:
                          "separated by ';'")
     ap.add_argument("--phase", type=lambda t: _shapes(t, 2), default=list(PHASES),
                     help="B,M phase shapes separated by ';'")
+    ap.add_argument("--elementwise", type=lambda t: [int(v) for v in t.split(",") if v],
+                    default=list(ELEMENTWISE_LARGE),
+                    help="elements M of the Fr and Fq ops' large rows, separated by ','")
+    ap.add_argument("--points", type=int, default=POINTS,
+                    help="points of the add_mixed and double rows (0: none)")
+    ap.add_argument("--stage", type=lambda t: [int(v) for v in t.split(",") if v],
+                    default=list(STAGE_SIZES),
+                    help="elements M of the small-against-staged rows, separated by ','")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--prove-repeat", type=int, default=5)
     ap.add_argument("--no-prove", action="store_true")
@@ -354,7 +436,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     print(json.dumps(run(args.device, args.horner, args.bucket, args.segments, args.reps,
                          0 if args.no_prove else args.prove_repeat, args.sass, args.add,
-                         args.accumulate, args.masked, args.ladder, args.phase)), flush=True)
+                         args.accumulate, args.masked, args.ladder, args.phase,
+                         args.elementwise, args.points, args.stage)), flush=True)
     return 0
 
 

@@ -1,9 +1,12 @@
-"""The G1 kernels (also the team kernels at the prove's shapes), the dense
-MSM, the strided Fr products, the int8 engine and the fold-phase kernel on
-the card, against the plain versions.  Every test here needs a CUDA card and skips without one; the
-file imports nothing of JAX, so it also runs where JAX is not installed:
+"""The elementwise kernel on operands read through their strides, the G1
+kernels (also the team kernels at the prove's shapes), the dense MSM, the
+strided Fr products, the int8 engine and the fold-phase kernel on the
+card, against the plain versions.  Every test here needs a CUDA card and
+skips without one; the file imports nothing of JAX, so it also runs where
+JAX is not installed (``tests/conftest.py`` imports it, hence
+``--noconftest``):
 
-    python -m pytest tests/test_torch_card.py tests/test_torch_package.py -m gpu
+    python -m pytest --noconftest tests/test_torch_card.py tests/test_torch_package.py -m gpu
 """
 
 import pytest
@@ -187,3 +190,32 @@ def test_phase_kernel_matches_plain_on_card(cuda):
     assert {K for _, _, K, _ in held} == {1, 2, 4, 8}
     assert all((head == 0) == (M <= cuda_sumcheck.TAIL_MAX) for _, M, _, head in held)
     assert chip_smoke.fr_chain(F)["fr_mul_cc_held_on"] == (1 << 16) + 16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("field", ["bls12_381_fr", "bls12_381_fq"])
+def test_binary_cases_match_plain_on_card(cuda, field):
+    """The elementwise kernel on ``chip_smoke.binary_cases`` (edge values,
+    a transposed view, a stepped slice, middle broadcasts, the outer
+    product [64, 1] x [1, 256], a misaligned base, a staged launch's
+    partial tile), through the wrappers and in small and staged launches,
+    bit for bit against the plain versions, no operand copied; one launch
+    a wrapper call; then ``add_mixed`` and ``double`` (the point-op team
+    kernel) on the edge lanes, one launch each."""
+    F = get_field(field, device=cuda)
+    cases = chip_smoke.binary_cases(F)
+    before = cuda_fr.mul.launches
+    assert chip_smoke.check_binary_cases(F, cases) == list(cases)
+    assert cuda_fr.mul.launches == before + len(cases)
+    if field == "bls12_381_fq":
+        C = bls12_381_g1(cuda)
+        P = C.double(chip_smoke.rand_points_flat(C, 58, 11))
+        Q = C.double(chip_smoke.rand_points_flat(C, 58, 12))
+        p1, p2 = chip_smoke._edge_points(C, P, Q)
+        for name, args in (("add_mixed", (p1, C.normalize(p2))), ("double", (p1,))):
+            kern = getattr(cuda_g1, name)
+            before = kern.launches
+            out = kern(C.fq.spec, *args)
+            assert kern.launches == before + 1
+            assert all(torch.equal(a, b) for a, b in zip(out, kern.plain(C.fq.spec, *args),
+                                                         strict=True)), name

@@ -9,12 +9,17 @@ card sees the code:
   vector types and the intrinsics the sources use) and each
   ``kernel<<<...>>>(args)`` launch is rewritten as a call: a typo in a
   kernel fails here, not only on the card;
-* the G1 team kernels of ``csrc/g1.cu`` and ``csrc/g1_chain.cu`` (point
-  ``add``, the accumulate, the masked adds, the scalar ladder, Horner,
-  and bucket-serial beside them) and the fold phase of ``csrc/sumcheck.cu``
-  (its cluster kernel and head rounds) run on an emulation of the card:
-  each block's threads are host threads, ``__syncthreads`` is a barrier of
-  the block, ``__syncwarp`` one of the lanes its mask names,
+* the elementwise kernel of ``csrc/fr.cu`` (small and staged launches,
+  operands read through their strides), the G1 team kernels of
+  ``csrc/g1.cu`` and ``csrc/g1_chain.cu`` (point ``add``, ``add_mixed``
+  and ``double``, the accumulate, the masked adds, the scalar ladder,
+  Horner, and bucket-serial beside them) and the fold phase of
+  ``csrc/sumcheck.cu`` (its cluster kernel and head rounds) run on an
+  emulation of the card:
+  each block's threads are host threads, static ``__shared__`` arrays are
+  one buffer that the blocks, run one after another, share (each block
+  finds what the last one left), ``__syncthreads`` is a barrier of the
+  block, ``__syncwarp`` one of the lanes its mask names,
   ``__shfl_sync`` a barrier and exchange among them; a cluster's blocks
   run together, each with its own dynamic shared memory (not zeroed),
   ``cluster.sync()`` is a barrier of the cluster and ``map_shared_rank``
@@ -489,6 +494,30 @@ def test_emulated_team_add(emulated, curve):
         _assert_points_equal(out, cuda_g1.add.plain(spec, a, b))
 
 
+@pytest.mark.parametrize("op", ["add_mixed", "double"])
+def test_emulated_team_point_ops(emulated, curve, op):
+    """``point_op_team_kernel`` (ops 1 ``add_mixed`` and 2 ``double`` of
+    ``sczk_g1_point_op``) against the plain versions: the six edge lanes of
+    ``chip_smoke._edge_points`` (infinity on either side and both, an
+    equal pair that doubles, equal points in other forms, P + (-P)) in two
+    launches of 3 lanes, then 64 random lanes and the edge lanes in one
+    launch of 70 (2-lane teams, two blocks, the edge lanes' teams
+    diverging in their warp); the right operand of ``add_mixed`` affine."""
+    spec = curve.fq.spec
+    P = curve.double(chip_smoke.rand_points_flat(curve, 64, 3))
+    Q = curve.double(chip_smoke.rand_points_flat(curve, 64, 4))
+    p1, p2 = chip_smoke._edge_points(curve, P, Q)
+    p1, p2 = (tuple(a.contiguous() for a in pt) for pt in (p1, curve.normalize(p2)))
+    kern = getattr(cuda_g1, op)
+    for lo, hi in ((64, 67), (67, 70), (0, 70)):
+        a, b = (tuple(x[lo:hi].contiguous() for x in pt) for pt in (p1, p2))
+        out = _new(spec, (hi - lo,))
+        assert emulated["g1"].sczk_g1_point_op(cuda_g1._OPS[op], *_ptrs(a), *_ptrs(b),
+                                                *_ptrs(out), hi - lo, _consts(spec), None) == 0
+        want = kern.plain(spec, a, b) if op == "add_mixed" else kern.plain(spec, a)
+        _assert_points_equal(out, want)
+
+
 @pytest.mark.parametrize("case", ["collision", "diverging_warp", "random_two_chunks"])
 def test_emulated_team_accumulate(emulated, curve, case):
     """``accumulate_team_kernel`` against ``accumulate_plain`` on
@@ -581,6 +610,48 @@ def _build(tree: Path, name: str, sigs: dict, *flags) -> ctypes.CDLL:
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     return lib
+
+
+@pytest.fixture(scope="module")
+def fr_lib(tmp_path_factory):
+    """``fr.cu`` built for the emulation."""
+    _gxx()
+    tree = _host_tree(tmp_path_factory.mktemp("csrc_host"), emulate=True)
+    return _build(tree, "fr", cuda_fr._SIGNATURES)
+
+
+@pytest.mark.parametrize("case", ["edge", "transposed", "stepped", "middle_broadcast",
+                                  "outer_product", "trailing_block", "constant", "misaligned",
+                                  "partial_tiles"])
+@pytest.mark.parametrize("field", ["bls12_381_fr", "bls12_381_fq"])
+def test_emulated_binary(fr_lib, field, case):
+    """``sczk_fr_binary`` (mul, add, sub; small and staged launches) on
+    ``chip_smoke.binary_cases`` (its outer product at [16, 1] x [1, 24])
+    against the plain versions, bit for bit; no operand copied."""
+    F = get_field(field, device="cpu")
+    a, b = chip_smoke.binary_cases(F, outer=(16, 24))[case]
+    before = cuda_fr.copies
+    for op in ("mul", "add", "sub"):
+        want = getattr(cuda_fr, f"{op}_plain")(F.spec, a, b)
+        for staged in (False, True):
+            got = cuda_fr.run_binary(fr_lib, op, F.spec, a, b, None, staged)
+            assert torch.equal(got, want), (op, staged)
+    assert cuda_fr.copies == before
+
+
+def test_emulated_binary_refuses(fr_lib):
+    """A rank beyond the kernel's, a negative stride or an output that is
+    not 16-byte aligned is refused, not launched."""
+    spec = get_field("bls12_381_fr", device="cpu").spec
+    x = torch.zeros((2, 16), dtype=torch.int32)
+    out = torch.zeros(20, dtype=torch.int32)
+    consts = cuda_fr.field_consts(spec).ctypes.data
+    for rank, layout, o in ((5, [1] * 5 + [0] * 10, out), (1, [2, 16, -16], out),
+                            (1, [1, 0, 0], out[1:])):
+        arr = np.array(layout, dtype=np.int64)
+        assert fr_lib.sczk_fr_binary(0, 8, x.data_ptr(), x.data_ptr(), o.data_ptr(), rank,
+                                     arr.ctypes.data, 0, consts, None) == 1
+    assert torch.equal(out, torch.zeros(20, dtype=torch.int32))
 
 
 @pytest.fixture(scope="module")

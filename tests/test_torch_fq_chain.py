@@ -1,7 +1,9 @@
 """The low-latency Montgomery products of ``csrc/fq_chain.cuh`` on the CPU:
 ``fq_mul_cc`` (N = 12, Horner's, bucket-serial's and the team kernels')
-and ``fr_mul_cc`` (N = 8, the sumcheck fold phase's), and the phase's
-carry-flag ``fr_add_cc`` and ``fr_sub_cc``.
+and ``fr_mul_cc`` (N = 8, the sumcheck fold phase's), the phase's
+carry-flag ``fr_add_cc`` and ``fr_sub_cc``, and the carry-flag add and
+subtract at N = 12 (``add_mod_cc<12>``, ``sub_mod_cc<12>``, the
+elementwise kernel's Fq add and sub in ``csrc/fr.cu``).
 
 The product is CUDA C++ on PTX carry-flag instructions, which nothing here
 can run.  This test compiles the header's arithmetic with the host C++
@@ -15,6 +17,7 @@ on the card, and ``fr_mul_cc`` against ``fmul<8>`` likewise.  Skips
 where there is no ``g++``.
 """
 
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -92,9 +95,10 @@ def _on_host(tmp_path, field: str, op: str, nbytes: int, seed: int, expect):
         pytest.skip("needs a host C++ compiler (g++)")
     spec = get_field(field, device="cpu").spec
     n = spec.num_words
-    src = tmp_path / f"{op}_host.cpp"
+    name = re.sub(r"\W", "_", op)
+    src = tmp_path / f"{name}_host.cpp"
     src.write_text(_host_source())
-    exe = tmp_path / f"{op}_host"
+    exe = tmp_path / f"{name}_host"
     subprocess.run([cxx, "-std=c++17", "-O1", f"-DNW={n}", f"-DMUL={op}", "-o", str(exe),
                     str(src)], check=True, capture_output=True)
     q, R = spec.modulus, 1 << (32 * n)
@@ -137,3 +141,11 @@ def test_fr_add_sub_cc_on_host(tmp_path, op):
     edge and random pairs."""
     sign = 1 if op == "fr_add_cc" else -1
     _on_host(tmp_path, "bls12_381_fr", op, 32, 9, lambda x, y, q, R: (x + sign * y) % q)
+
+
+@pytest.mark.parametrize("op", ["fqcc::add_mod_cc<12>", "fqcc::sub_mod_cc<12>"])
+def test_fq_add_sub_cc_on_host(tmp_path, op):
+    """The same carry-flag a + b and a - b at N = 12, mod q, canonical, on
+    the edge and random pairs of the Fq product's test."""
+    sign = 1 if "add" in op else -1
+    _on_host(tmp_path, "bls12_381_fq", op, 48, 10, lambda x, y, q, R: (x + sign * y) % q)

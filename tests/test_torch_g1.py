@@ -288,13 +288,25 @@ def test_chain_bench_on_cpu(capsys):
     no device time on the CPU), per masked-add lane count and share, per
     ladder lanes and limbs, per accumulate call (the one a ragged MSM
     over levels 8, 4, 2, 1 makes, with its shape), per Horner shape and
-    per bucket shape and segment count, per fold-phase shape, no product
-    chain (a card-only probe) and no prove."""
+    per bucket shape and segment count, per fold-phase shape, per
+    elementwise op at the prove's shapes and at each ``--elementwise``
+    size, per point op, no product chain, empty launch or small-against-
+    staged row (card-only probes) and no prove."""
     chain_bench.main(["--device", "cpu", "--horner", "3,2,2;2,1,1", "--bucket", "5,3",
                       "--segments", "1,2", "--reps", "1", "--no-prove", "--add", "3",
                       "--masked", "5,4:0.25", "--ladder", "2x1",
-                      "--accumulate", "ragged:8,1", "--phase", "2,8;1,4"])
+                      "--accumulate", "ragged:8,1", "--phase", "2,8;1,4",
+                      "--elementwise", "8", "--points", "5", "--stage", "4"])
     out = json.loads(capsys.readouterr().out)
+    ew = out["elementwise_ms"]
+    for op, pairs in chain_bench.ELEMENTWISE_SHAPES.items():
+        want = {f"bls12_381_fr {op} {list(sa)}x{list(sb)}" for sa, sb in pairs}
+        want |= {f"{f} {op} [8]x[8]" for f in ("bls12_381_fr", "bls12_381_fq")}
+        assert want <= set(ew)
+    assert len(ew) == 15 and set(out["point_ms"]) == {"add_mixed", "double"}
+    for row in (*ew.values(), *out["point_ms"].values()):
+        assert row["device"] is None and row["events"] > 0
+    assert out["stage_ms"] == {} and "empty_launch_ms" not in out
     assert set(out["phase_ms"]) == {"2,8", "1,4"} and out["fr_chain_us"] == {}
     assert all(r["device"] is None and r["events"] > 0 for r in out["phase_ms"].values())
     assert out["card"] == "cpu" and set(out["horner_ms"]) == {"3,2,2", "2,1,1"}

@@ -208,6 +208,40 @@ def test_chip_smoke_phase_recording_keeps_calls_as_made():
     assert chip_smoke.replay(kept)[0] == {"sumcheck_product_phase": 1}
 
 
+@pytest.mark.parametrize("case", ["broadcast", "stepped", "transposed", "misaligned"])
+def test_chip_smoke_view_snapshot_keeps_layout(case):
+    """``chip_smoke._view_snapshot`` keeps an operand's values, sizes,
+    strides and offset from a 16-byte boundary (so its replay and timing
+    take the prove's kernel instance), in memory of its own."""
+    F = get_field("bls12_381_fr", device="cpu")
+    base = F.random((24,), 5).contiguous()
+    x = {"broadcast": base[:3, None].expand(3, 4, F.L), "stepped": base[1::5],
+         "transposed": base.view(4, 6, F.L).transpose(0, 1),
+         "misaligned": base.view(-1)[1:1 + 8 * F.L].view(8, F.L)}[case]
+    y = chip_smoke._view_snapshot(x)
+    assert y.shape == x.shape and y.stride() == x.stride() and torch.equal(y, x)
+    assert y.data_ptr() % 16 == x.data_ptr() % 16
+    assert cuda_fr.launch_mode(y, y) == cuda_fr.launch_mode(x, x)
+    base.zero_()
+    assert not torch.equal(y, x)
+
+
+def test_chip_smoke_records_every_elementwise_call():
+    """``chip_smoke.record_elementwise`` keeps and replays every field call
+    of a run (here a small gate identity on the CPU), and counts them by
+    kernel instance and size; the modules are restored after it."""
+    F = get_field("bls12_381_fr", device="cpu")
+    _, _, run = chip_smoke.gate_identity(F, dict(chip_smoke.GATE, n=6, l=2))
+    calls, keys, summary = chip_smoke.record_elementwise(run)
+    assert fr_module.cuda_fr is cuda_fr and len(calls) == len(keys) > 0
+    replayed = summary["elementwise_calls_replayed"]
+    assert set(replayed) == {"fr_mul", "fr_add", "fr_sub"}
+    assert sum(replayed.values()) == len(calls)
+    assert sum(n for _, n in summary["elementwise_calls_by_mode"]) == len(calls)
+    assert sum(n for _, n in summary["elementwise_calls_by_log2_outputs"]) == len(calls)
+    assert {k[:2] for k in keys} == {("bls12_381_fr", op) for op in ("mul", "add", "sub")}
+
+
 def test_chip_smoke_ladder_and_masked_shapes():
     """chip_smoke.py's shape keys of a ladder call (lanes after broadcast,
     scalar limbs) and of an add_masked call (lanes, masked lanes), its
@@ -345,13 +379,23 @@ def test_phase_plan_and_bound():
 
 
 def test_kernel_operand_periods():
+    """The operands of a [3, 4] launch are read in place: a full operand
+    in one dim of stride 16 beside a constant of stride 0; a trailing block
+    or a leading column beside a full operand in two dims, the broadcast
+    dim of stride 0; none copied."""
     shape = torch.Size((3, 4, 16))
     full = torch.zeros(shape, dtype=torch.int32)
-    assert cuda_fr.kernel_operand(full, shape)[1] == 12
-    assert cuda_fr.kernel_operand(torch.zeros(16, dtype=torch.int32), shape)[1] == 1
-    assert cuda_fr.kernel_operand(torch.zeros((1, 4, 16), dtype=torch.int32), shape)[1] == 4
-    x, period = cuda_fr.kernel_operand(torch.zeros((3, 1, 16), dtype=torch.int32), shape)
-    assert period == 12 and tuple(x.shape) == tuple(shape)
+    const = torch.zeros(16, dtype=torch.int32)
+    block = torch.zeros((1, 4, 16), dtype=torch.int32)
+    col = torch.zeros((3, 1, 16), dtype=torch.int32)
+    before = cuda_fr.copies
+    for a, b, dims, strides in ((full, const, [12], ([16], [0])),
+                                (full, block, [3, 4], ([64, 16], [0, 16])),
+                                (col, full, [3, 4], ([16, 0], [64, 16]))):
+        got_dims, ops = cuda_fr.kernel_operands(shape, a, b)
+        assert got_dims == dims and [s for _, s in ops] == list(strides)
+        assert ops[0][0] is a and ops[1][0] is b
+    assert cuda_fr.copies == before
 
 
 def test_field_consts():
