@@ -95,7 +95,38 @@ Phases (any failure raises and exits non-zero):
 7. sim mode, l = 4 (32 parties), n = 20, shares from ``pack_from_public``:
    the opened transcript must pass ``check_sumcheck_product`` and equal the
    local transcript, and the party-net counters must equal the pins;
-8. print the kernel table (one JSON line) and last
+8. the protocol layer at n = 16, l = 8, each step with the counts set
+   to 0 just before it and read just after, its host seconds, launches per
+   kernel and peak device memory printed on a line of its own:
+   (a) honest SRSs of 18 variables built on the card (d with 64 parties'
+   weights and root levels, c plain, c packed for l = 8) from
+   tests/test_hyperplonk.py's secret seeds; every point of the levels up
+   to 6 and of the root levels, and 64 seeded points of each higher level,
+   equal to G1_GEN times the point's scalar on the host (the first of each
+   level by ``host_curve.g1_mul``, the rest by a fixed-base table of the
+   host's affine adds), and the top level's ladder on 4,096 lanes held
+   against its plain version;
+   (b) ``dhyperplonk`` in sim mode with all 64 parties on the card, on
+   consistent shares with those SRSs: ``verify_dhyperplonk`` with its
+   pairings must fail exactly the three c_open pairings (at l > 1 their
+   last log2(l) proofs are the reference's local MSMs over the packed
+   base, dpoly_comm.rs:454-456; the JAX package's verifier reports the
+   same) and accept it without pairings (prove, device-side and pairing
+   seconds apart), and a copy with one gate message changed must fail
+   naming gate[1]; then the same at l = 1 (8 parties) on SRSs of the
+   same secrets, which the complete verifier with its pairings accepts;
+   (c) ``local_hyperplonk`` and ``local_hyperplonkpp`` at n = 16 on
+   ``srs_random(curve, 18, 7)``, median of three synchronised proves after a
+   warm-up, digests pinned, and ``local_hyperplonk`` on the honest c-SRS of
+   (a), which ``verify_local_hyperplonk`` must accept;
+   (d) ``dhyperplonk_data_parallel``, ``dpermcheck`` and ``cpermcheck`` at
+   (16, 8) in leader mode, median of three after a warm-up, digest and comm
+   of one prove pinned.  Of each counted prove and of the (16, 8)
+   verifier run, the first field- and phase-kernel call at each operand
+   layout is replayed through the plain version, and in the local prove
+   and the verifier also the first call of each G1 kernel (the variants'
+   G1 calls have the flagship prove's shapes);
+9. print the kernel table (one JSON line) and last
    ``{"ok": true, "device": {...}}``.
 
 The pins (sha256 of the little-endian uint32 limb bytes, of normalized
@@ -104,9 +135,10 @@ comm counters) were made from the JAX package on the CPU with the same
 seeds and the same digest code, by ``test_chip_smoke_pins`` in
 ``tests/test_torch_sumcheck.py``, ``test_chip_smoke_msm_pins`` in
 ``tests/test_torch_msm.py``, ``test_chip_smoke_prove_pins`` in
-``tests/test_torch_hyperplonk.py`` and ``test_chip_smoke_fieldmul_pin`` in
-``tests/test_torch_fieldmul.py`` (marked slow), which recompute and check
-them.
+``tests/test_torch_hyperplonk.py``, ``test_chip_smoke_fieldmul_pin`` in
+``tests/test_torch_fieldmul.py`` and ``test_chip_smoke_protocol_pins`` in
+``tests/test_torch_protocol_slow.py`` (marked slow), which recompute and
+check them.
 """
 
 from __future__ import annotations
@@ -129,6 +161,7 @@ from torch.profiler import ProfilerActivity, profile
 from scalable_collaborative_zksnark_tpu_torch import bench as bench_module
 from scalable_collaborative_zksnark_tpu_torch import cuda_build
 from scalable_collaborative_zksnark_tpu_torch.curves import cuda_g1
+from scalable_collaborative_zksnark_tpu_torch.curves import host_curve as hc
 from scalable_collaborative_zksnark_tpu_torch.curves import g1 as g1_module
 from scalable_collaborative_zksnark_tpu_torch.curves.g1 import PointJ, bls12_381_g1, map_points
 from scalable_collaborative_zksnark_tpu_torch.fields import cuda_fr
@@ -136,14 +169,26 @@ from scalable_collaborative_zksnark_tpu_torch.fields import fr as fr_module
 from scalable_collaborative_zksnark_tpu_torch.fields import mxu
 from scalable_collaborative_zksnark_tpu_torch.fields.fr import get_field
 from scalable_collaborative_zksnark_tpu_torch.fields.config import int_to_limbs
-from scalable_collaborative_zksnark_tpu_torch.hyperplonk.collaborative import dhyperplonk
-from scalable_collaborative_zksnark_tpu_torch.hyperplonk.params import packed_proving_parameters
+from scalable_collaborative_zksnark_tpu_torch.hyperplonk import (cpermcheck, dhyperplonk,
+                                                                  dhyperplonk_data_parallel,
+                                                                  dpermcheck, local_hyperplonk,
+                                                                  local_hyperplonkpp, local_inputs,
+                                                                  packed_proving_parameters,
+                                                                  verify_local_hyperplonk)
+from scalable_collaborative_zksnark_tpu_torch.hyperplonk import collaborative as collab_module
+from scalable_collaborative_zksnark_tpu_torch.hyperplonk.collaborative import eq_top_table
+from scalable_collaborative_zksnark_tpu_torch.hyperplonk.params import (
+    consistent_proving_parameters)
+from scalable_collaborative_zksnark_tpu_torch.hyperplonk.verify import (verify_dhyperplonk,
+                                                                        verify_dhyperplonk_gate)
 from scalable_collaborative_zksnark_tpu_torch.mpc.net import PartyNet
 from scalable_collaborative_zksnark_tpu_torch.primitives import cuda_sumcheck
 from scalable_collaborative_zksnark_tpu_torch.primitives import msm as msm_module
 from scalable_collaborative_zksnark_tpu_torch.primitives import mxu_sumcheck
 from scalable_collaborative_zksnark_tpu_torch.primitives import sumcheck as sumcheck_module
-from scalable_collaborative_zksnark_tpu_torch.primitives.poly_comm import rand_points_flat
+from scalable_collaborative_zksnark_tpu_torch.primitives.poly_comm import (rand_points_flat,
+                                                                          srs_from_secret,
+                                                                          srs_random)
 from scalable_collaborative_zksnark_tpu_torch.primitives.sumcheck import (
     c_sumcheck_product,
     check_sumcheck_product,
@@ -151,6 +196,7 @@ from scalable_collaborative_zksnark_tpu_torch.primitives.sumcheck import (
 )
 from scalable_collaborative_zksnark_tpu_torch.pss.pss import PackedSharingParams
 from scalable_collaborative_zksnark_tpu_torch.scripts import exp_fieldmul, mxu_micro
+from scalable_collaborative_zksnark_tpu_torch.utils import timer
 from scalable_collaborative_zksnark_tpu_torch.utils.digest import (
     limb_digest,
     point_digest,
@@ -191,11 +237,45 @@ PINS = {
     "prove_n16_l8_comm": (3303721, 3930193, 1078689, 1068745, 131),
     # Field.mul of F.random((2^20,), 1) and F.random((2^20,), 2) (exp_fieldmul)
     "exp_fieldmul": "418666c20302a906ec8cc4417ca1a4142bef5ee98880bc4009046fe174bba65e",
+    # phase 8: the local provers at n = 16 on srs_random(curve, 18, 7)
+    # (examples/hyperplonk.py's) and the three variants at (16, 8) in
+    # leader mode: canonical digests and (up[0], down[0], up[1], down[1],
+    # rounds) of one prove
+    "local_n16": 0x3F383B6CD10547C8,
+    "localpp_n16": 0x17F6C15A03FE531F,
+    "dp_n16_l8": 0x0F5187531F18DCE8,
+    "dp_n16_l8_comm": (2271025, 2897497, 45993, 36049, 67),
+    "dperm_n16_l8": 0x0E93564EE605642F,
+    "dperm_n16_l8_comm": (2769985, 3662569, 1074441, 1060273, 117),
+    "cperm_n16_l8": 0xA9CA3AF5B5BBF6FD,
+    "cperm_n16_l8_comm": (24654169, 21474937, 8407817, 8458281, 559),
 }
 # The main path: dhyperplonk in leader mode at the JAX package's flagship
 # size, and the small size its CPU tests pin.
 PROVE = {"n": 16, "l": 8}
 SMALL_PROVE = {"n": 6, "l": 1}
+# Phase 8, the protocol layer at the flagship size: honest SRSs of n + 2
+# variables from tests/test_hyperplonk.py's secret seeds (d for 8l parties,
+# c plain and packed for l), the sim-mode prove with all 8l parties on the
+# card, the local provers on srs_random(curve, n + 2, 7) and the three
+# variants in leader mode
+PROTOCOL = {"n": 16, "l": 8, "srs_seeds": {"d": 31, "c": 37}, "local_srs_seed": 7}
+SRS_FULL_LEVELS = 6  # every point of the levels up to this one checked on the host
+SRS_SAMPLED = 64  # seeded points checked at each higher level
+LADDER_SLICE = 4096  # lanes of the SRS's top-level ladder held against the plain version
+# kernels each protocol path must launch
+SRS_KERNELS = ("fr_mul", "g1_scalar_mul")
+SRS_PACKED_KERNELS = ("fr_mul", "fr_add", "g1_scalar_mul")
+VERIFY_KERNELS = ("fr_mul", "fr_add", "fr_sub", "g1_scalar_mul", "g1_add")
+PROTOCOL_PROVE_KERNELS = ("fr_mul", "fr_add", "fr_sub", "sumcheck_product_phase", "g1_add",
+                          "g1_accumulate", "g1_horner")
+# what the verifier reports on a sim bundle at l > 1: the c_opens' phase-2
+# proofs are local MSMs over the packed base (the reference's stated
+# simplification, dpoly_comm.rs:454-456), so their pairings fail, in the
+# JAX package's verifier too
+C_OPEN_PHASE2_FAILURES = [f"c_open[{p}]: pairing check" for p in "abc"]
+LOCAL_PROVERS = {"local": local_hyperplonk, "localpp": local_hyperplonkpp}
+VARIANTS = {"dp": dhyperplonk_data_parallel, "dperm": dpermcheck, "cperm": cpermcheck}
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 IMAD_PER_SM_CLOCK = 64  # 32-bit integer multiply(-add) per SM per clock, cc 9.0
@@ -356,6 +436,8 @@ def _host_ms(fn, reps: int) -> float:
 
 
 def _max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    if a.numel() == 0:
+        return 0
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
@@ -1734,6 +1816,491 @@ def fieldmul_path(launches: dict) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the protocol layer
+# ---------------------------------------------------------------------------
+def _step(tag: str, fn, launches: dict):
+    """``fn()`` once, with the counts set to 0 just before it and read just
+    after; prints its host seconds (synchronised), launches per kernel and
+    peak device memory on a line of its own.  Returns (result, that row)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches[tag] = _counts()
+    row = {"step": tag, "host_s": dt, "launches": {k: v for k, v in launches[tag].items() if v},
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    print(json.dumps(row), flush=True)
+    return out, row
+
+
+def _require(tag: str, launches: dict, kernels):
+    missing = [k for k in kernels if not launches[tag][k]]
+    if missing:
+        raise AssertionError(f"{tag}: kernels not launched: {missing}")
+
+
+def _secrets(n_vars: int, seed: int) -> list:
+    """tests/test_hyperplonk.py's honest secrets: 40 seeded bytes each, mod r."""
+    rng = np.random.RandomState(seed)
+    return [int.from_bytes(rng.bytes(40), "little") % hc.R for _ in range(n_vars)]
+
+
+def _level_scalar(factors, k: int, j: int) -> int:
+    """Point j of tensor level k over ``factors``: bit t of j picks f_t or 1 - f_t."""
+    w = 1
+    for t in range(k):
+        f = factors[t] % hc.R
+        w = w * (f if (j >> t) & 1 else (1 - f) % hc.R) % hc.R
+    return w
+
+
+def _checked(k: int, size: int, seed: int) -> list:
+    """Every index of a level up to SRS_FULL_LEVELS, else SRS_SAMPLED seeded ones."""
+    if k <= SRS_FULL_LEVELS or size <= SRS_SAMPLED:
+        return list(range(size))
+    return sorted(int(i) for i in np.random.RandomState(seed * 1000 + k).choice(
+        size, SRS_SAMPLED, replace=False))
+
+
+HOST_WINDOW = 8  # bits a window of the host's fixed-base table
+
+
+def _fixed_base_table() -> list:
+    """d 2^(8 w) G1_GEN for every 8-bit window w and digit d, by the host's
+    affine ``g1_add``."""
+    table, base = [], hc.G1_GEN
+    for _ in range(-(-hc.R.bit_length() // HOST_WINDOW)):
+        row = [None]
+        for _ in range(1, 1 << HOST_WINDOW):
+            row.append(hc.g1_add(row[-1], base))
+        table.append(row)
+        base = hc.g1_add(row[-1], base)
+    return table
+
+
+def _host_mul(table: list, k: int):
+    """G1_GEN times k on the host: one table entry added a window."""
+    acc, w = None, 0
+    while k:
+        acc = hc.g1_add(acc, table[w][k & ((1 << HOST_WINDOW) - 1)])
+        k >>= HOST_WINDOW
+        w += 1
+    return acc
+
+
+def _hold_points(curve, jobs, table: list) -> int:
+    """Each job (tag, points, {flat index: scalar}): the points at those
+    indices equal G1_GEN times their scalars on the host by affine value,
+    the first of each job by ``hc.g1_mul`` and the rest by the fixed-base
+    table (the same group element, a twentieth of the host's time);
+    returns the points held."""
+    held = 0
+    for tag, pts, scalars in jobs:
+        idx = sorted(scalars)
+        got = curve.to_affine_ints(map_points(lambda a: a.reshape(-1, a.shape[-1])[idx], pts))
+        for n, (i, g) in enumerate(zip(idx, got)):
+            ref = hc.g1_mul(hc.G1_GEN, scalars[i]) if n == 0 else _host_mul(table, scalars[i])
+            if g != ref:
+                raise AssertionError(f"{tag}: point {i} differs from the host's product")
+        held += len(idx)
+    return held
+
+
+def check_srs(curve, pp, srs: dict, secrets: dict) -> dict:
+    """Each SRS of (a) against the host: every point of its levels up to
+    SRS_FULL_LEVELS (the root levels all) and SRS_SAMPLED seeded points of
+    each higher level equal G1_GEN times the point's scalar on the host
+    (``_hold_points``); returns the points held per SRS."""
+    n_vars = len(secrets["c"])
+    jobs = {}
+    for name in ("c", "d"):
+        s = secrets[name]
+        factors = [s[n_vars - t - 1] for t in range(n_vars)]
+        jobs[name] = [(f"{name} level {k}", lv, {
+            j: _level_scalar(factors, k, j) for j in _checked(k, 1 << k, 1 + k)})
+            for k, lv in enumerate(srs[name].powers_of_g)]
+    d, s = srs["d"], secrets["d"]
+    sbits = pp.n.bit_length() - 1
+    jobs["d_root_levels"] = []
+    for m_total, levels in d.root_levels.items():
+        base = n_vars - m_total
+        factors = [s[base + sbits - i - 1] for i in range(sbits)]
+        jobs["d_root_levels"] += [(f"d root {m_total} level {k}", lv, {
+            j: _level_scalar(factors, k, j) for j in range(1 << k)}) for k, lv in enumerate(levels)]
+    s = secrets["c"]
+    factors = [s[n_vars - t - 1] for t in range(n_vars)]
+    mat = pp.pack_matrix()
+    jobs["c_packed"] = []
+    for k, lv in enumerate(srs["c_packed"].packed_powers):
+        chunks = lv.x.shape[1]
+
+        def share(flat, k=k, chunks=chunks):
+            j, c = divmod(flat, chunks)
+            return sum(int(mat[j, i]) * _level_scalar(factors, k, c * pp.l + i)
+                       for i in range(pp.l) if c * pp.l + i < 1 << k) % hc.R
+        jobs["c_packed"].append((f"c packed level {k}", lv, {
+            f: share(f) for f in _checked(k, pp.n * chunks, 2 + k)}))
+    table = _fixed_base_table()
+    return {name: _hold_points(curve, j, table) for name, j in jobs.items()}
+
+
+def hold_srs_ladder(curve, secrets: list) -> dict:
+    """The SRS build's ladder on LADDER_SLICE lanes of the top level (the
+    generator times the level's scalars, from ``secrets``) against its plain
+    version, both timed."""
+    spec = curve.fq.spec
+    n_vars = len(secrets)
+    factors = [secrets[n_vars - t - 1] for t in range(n_vars)]
+    sc = curve.fr.decode(curve.fr.array_from_ints(
+        [_level_scalar(factors, n_vars, j) for j in range(LADDER_SLICE)]))
+    g = map_points(lambda a: a.expand(sc.shape[0], a.shape[-1]),
+                   curve.from_affine_ints([hc.G1_GEN]))
+    run = lambda: cuda_g1.scalar_mul(spec, g, sc)  # noqa: E731
+    t0 = time.perf_counter()
+    ref = cuda_g1.scalar_mul.plain(spec, g, sc)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    return {"lanes": sc.shape[0], "max_abs_err": _equal("g1 scalar_mul (SRS top level)", run(),
+                                                         ref),
+            "ms": _ms(run, reps=3), "plain_ms": plain_ms}
+
+
+def _layout(a):
+    if isinstance(a, torch.Tensor):
+        return tuple(a.shape), a.stride()
+    if isinstance(a, (tuple, list)):
+        return tuple(_layout(x) for x in a)
+    return a if isinstance(a, (int, float, str)) else type(a).__name__
+
+
+def _snap_layout(a):
+    """``_view_snapshot`` of every tensor in ``a`` (nested tuples, lists and
+    points kept)."""
+    if isinstance(a, torch.Tensor):
+        return _view_snapshot(a)
+    if isinstance(a, PointJ):
+        return PointJ(*(_snap_layout(x) for x in a))
+    if isinstance(a, (tuple, list)):
+        return type(a)(_snap_layout(x) for x in a)
+    return a
+
+
+class _FirstOfLayout:
+    """A ``keep`` for ``_Recorder``: the first field- and phase-kernel call
+    at each operand layout (shapes and strides) and the first call of each
+    G1 kernel (their plain versions walk a ladder, a Horner chain or an
+    accumulate's steps one at a time: seconds a call), operands as laid out
+    and the result as it was."""
+
+    def __init__(self):
+        self.seen = set()
+
+    def __call__(self, calls: list, entry):
+        name, args, out = entry
+        key = name if name.startswith("g1_") else (name, _layout(args))
+        if key not in self.seen:
+            self.seen.add(key)
+            calls.append((name, _snap_layout(args), _snapshot(out)))
+
+
+class _ReplayEachLayout:
+    """A ``keep`` for ``_Recorder`` that files nothing: the first call of
+    every field and phase kernel at each operand layout, and of every G1
+    kernel at each layout inside a c-side commit or open
+    (``_c_side_g1``), is replayed through the plain version as it returns
+    (``replay``, which raises on a difference); the ladder's first call
+    alone (its plain version walks the scalar's bits, ~10 s a call).
+    ``seen`` counts the calls replayed per kernel, and ``seconds`` the host
+    seconds they took."""
+
+    def __init__(self, by_name=("g1_scalar_mul",)):
+        self.by_name, self.keys, self.seen, self.seconds = by_name, set(), {}, {}
+        self.c_side = 0  # depth of c-side calls the prover is inside
+
+    def __call__(self, calls: list, entry):
+        name, args, _ = entry
+        if name.startswith("g1_") and name not in self.by_name and not self.c_side:
+            return
+        key = name if name in self.by_name else (name, _layout(args))
+        if key not in self.keys:
+            self.keys.add(key)
+            t0 = time.perf_counter()
+            replay([entry])
+            self.seen[name] = self.seen.get(name, 0) + 1
+            self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+
+
+C_SIDE = ("c_commit", "c_open", "c_open_many")
+
+
+@contextlib.contextmanager
+def _c_side_g1(keep: _ReplayEachLayout):
+    """The prover's c-side commits and opens (``C_SIDE``) mark ``keep``
+    while they run: at l > 1 the verifier cannot pair the c_opens, so
+    nothing but a replay holds their G1 results; the d side's it pairs."""
+    saved = {name: getattr(collab_module, name) for name in C_SIDE}
+
+    def marked(fn):
+        def call(*args, **kwargs):
+            keep.c_side += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                keep.c_side -= 1
+        return call
+    for name, fn in saved.items():
+        setattr(collab_module, name, marked(fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(collab_module, name, fn)
+
+
+@contextlib.contextmanager
+def sampled_recording(g1: bool = True, keep=None):
+    """Keep the kernel calls inside the block that ``keep`` samples
+    (``_FirstOfLayout`` by default); with ``g1`` False, the field and
+    phase calls alone."""
+    calls, keep = [], keep or _FirstOfLayout()
+    fr_module.cuda_fr = _Recorder(cuda_fr, "fr_", ("mul", "add", "sub"), calls, keep=keep)
+    sumcheck_module.cuda_sumcheck = _Recorder(cuda_sumcheck, "sumcheck_", ("product_phase",), calls,
+                                              keep=keep)
+    if g1:
+        g1_module.cuda_g1 = msm_module.cuda_g1 = _Recorder(cuda_g1, "g1_", G1_WRAPPERS, calls,
+                                                           keep=keep)
+    try:
+        yield calls
+    finally:
+        fr_module.cuda_fr, sumcheck_module.cuda_sumcheck = cuda_fr, cuda_sumcheck
+        g1_module.cuda_g1 = msm_module.cuda_g1 = cuda_g1
+
+
+def _pairing_s() -> float:
+    return sum(dt for label, dt in timer.records() if label == "Pairing check")
+
+
+def _timed_verify(fn) -> dict:
+    """``fn()`` (a verifier call), synchronised: its result, its host
+    seconds, and those of them in the host pairing checks."""
+    timer.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ok, fails = fn()
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    pairing = _pairing_s()
+    return {"ok": ok, "failures": fails, "verify_s": total, "pairing_s": pairing,
+            "device_side_s": total - pairing}
+
+
+def srs_paths(curve, pp, launches: dict) -> tuple[dict, dict]:
+    """(a): the honest SRSs of n + 2 variables built on the card, each a
+    step of its own, held against the host; then the top level's ladder on
+    a slice against its plain version.  Returns (SRSs, report)."""
+    n_vars = PROTOCOL["n"] + 2
+    secrets = {k: _secrets(n_vars, seed) for k, seed in PROTOCOL["srs_seeds"].items()}
+    srs, report = {}, {}
+    srs["d"], report["srs_d"] = _step("srs_d", lambda: srs_from_secret(
+        curve, hc.G1_GEN, hc.G2_GEN, secrets["d"], n_parties=pp.n), launches)
+    srs["c"], report["srs_c"] = _step("srs_c", lambda: srs_from_secret(
+        curve, hc.G1_GEN, hc.G2_GEN, secrets["c"]), launches)
+    srs["c_packed"], report["srs_c_packed"] = _step("srs_c_packed", lambda: srs_from_secret(
+        curve, hc.G1_GEN, hc.G2_GEN, secrets["c"], pp=pp), launches)
+    for tag, kernels in (("srs_d", SRS_KERNELS), ("srs_c", SRS_KERNELS),
+                         ("srs_c_packed", SRS_PACKED_KERNELS)):
+        _require(tag, launches, kernels)
+    t0 = time.perf_counter()
+    report["points_held"] = check_srs(curve, pp, srs, secrets)
+    report["host_check_s"] = time.perf_counter() - t0
+    report["top_level_ladder"] = hold_srs_ladder(curve, secrets["c"])
+    return srs, report
+
+
+def _sim_prove_verify(tag: str, curve, pp, srs: dict, launches: dict, replayed: dict,
+                      hold: bool = True):
+    """``dhyperplonk`` in sim mode, all 8l parties on the card, on consistent
+    shares with the honest SRSs ``srs`` (c plain, c packed, d), then the
+    complete verifier with its pairings, each a step.  With ``hold``, one
+    more prove, which must prove the same bundle, whose field and phase
+    calls at each operand layout and G1 calls at each layout of its c-side
+    commits and opens (``_ReplayEachLayout``) are replayed through the
+    plain versions as they return, and the verifier's sampled kernel calls
+    replayed.  Returns (report, the verifier's
+    verdict, the verifier without pairings, a gate-section check on a
+    corrupted copy)."""
+    n = PROTOCOL["n"]
+    net = PartyNet(pp.n, mode="sim")
+    pk, g = consistent_proving_parameters(n, pp.l, net, {"c": srs["c_packed"], "d": srs["d"]},
+                                          curve=curve)
+    proof, row = _step(f"{tag}_prove", lambda: dhyperplonk(n, pk, net), launches)
+    _require(f"{tag}_prove", launches, PROTOCOL_PROVE_KERNELS)
+    report = {"prove": row, "parties": pp.n, "l": pp.l}
+    if hold:
+        keep = _ReplayEachLayout()
+        t0 = time.perf_counter()
+        with sampled_recording(keep=keep), _c_side_g1(keep):
+            again = dhyperplonk(n, pk, net)
+        torch.cuda.synchronize()
+        report["prove_replay_s"] = time.perf_counter() - t0
+        if proof_digest(curve, again) != proof_digest(curve, proof):
+            raise AssertionError(f"{tag}: the replayed prove made another bundle")
+        del again
+        replayed[f"{tag}_prove"] = report["prove_calls_replayed"] = keep.seen
+        report["prove_replay_s_by_kernel"] = keep.seconds
+        missing = [k for k, v in launches[f"{tag}_prove"].items() if v and not keep.seen.get(k)]
+        if missing:
+            raise AssertionError(f"{tag}: no call of {missing} replayed")
+    args = (pp, srs["c"], srs["d"], proof, g, pk.challenge, pk.challenge_r2,
+            eq_top_table(curve.fr, pp.n))
+    with (sampled_recording() if hold else contextlib.nullcontext([])) as kept:
+        verdict, report["verify_step"] = _step(
+            f"{tag}_verify", lambda: _timed_verify(lambda: verify_dhyperplonk(*args)), launches)
+    _require(f"{tag}_verify", launches, VERIFY_KERNELS)
+    if hold:
+        t0 = time.perf_counter()
+        replayed[f"{tag}_verify"] = replay(kept)[0]
+        report["verify_replay_s"] = time.perf_counter() - t0
+    del kept
+    report["verify"] = verdict
+
+    def corrupted():
+        bad = list(proof[0][0])
+        bad[1] = bad[1].clone()
+        bad[1][:, 0, 1, 0] += 1  # tests/test_hyperplonk.py:248
+        return verify_dhyperplonk_gate(pp, srs["c"], srs["d"], (bad, proof[0][1]), g["eq"],
+                                       pk.challenge, pairings=False)
+    return report, verdict, lambda: verify_dhyperplonk(*args, pairings=False), corrupted
+
+
+def sim_path(curve, pp, srs: dict, launches: dict, replayed: dict) -> dict:
+    """(b): the sim-mode prove with all 8l = 64 parties on the card,
+    verified.  Its c_opens' last log2(l) proofs are the reference's local
+    MSMs over the packed base (dpoly_comm.rs:454-456), so at l > 1 the
+    verifier's c_open pairings fail, as the JAX package's do
+    (``C_OPEN_PHASE2_FAILURES``); every other check must pass, the whole
+    verifier without pairings must accept, and a copy with one gate
+    message changed must fail naming gate[1] in every failure.  Then the
+    same prove at l = 1 (8 parties, c_opens without those rounds) on SRSs
+    of the same secrets, which the complete verifier with its pairings
+    must accept."""
+    report, verdict, unpaired, corrupted = _sim_prove_verify("sim", curve, pp, srs, launches,
+                                                             replayed)
+    n = PROTOCOL["n"]
+    if (verdict["ok"], verdict["failures"]) != (False, C_OPEN_PHASE2_FAILURES):
+        raise AssertionError(f"sim-mode (n={n}, l={pp.l}) bundle: {verdict['failures']}")
+    report["verify_without_pairings"] = unpaired()
+    if report["verify_without_pairings"] != (True, []):
+        raise AssertionError(f"sim-mode (n={n}, l={pp.l}) bundle fails without pairings: "
+                             f"{report['verify_without_pairings']}")
+    ok, fails = corrupted()
+    if ok or not fails or not all("gate[1]" in f for f in fails):
+        raise AssertionError(f"the corrupted gate message was not caught as gate[1]: {fails}")
+    report["corrupted_failures"] = fails
+
+    pp1 = PackedSharingParams(curve.fr, 1)
+    srs1 = {"c": srs["c"]}
+    srs1["d"], report["srs_d_8"] = _step("srs_d_8", lambda: srs_from_secret(
+        curve, hc.G1_GEN, hc.G2_GEN, _secrets(n + 2, PROTOCOL["srs_seeds"]["d"]),
+        n_parties=pp1.n), launches)
+    srs1["c_packed"], report["srs_c_packed_l1"] = _step("srs_c_packed_l1", lambda: srs_from_secret(
+        curve, hc.G1_GEN, hc.G2_GEN, _secrets(n + 2, PROTOCOL["srs_seeds"]["c"]), pp=pp1),
+        launches)
+    report["l1"], verdict, _, _ = _sim_prove_verify("sim_l1", curve, pp1, srs1, launches, replayed,
+                                                    hold=False)
+    if (verdict["ok"], verdict["failures"]) != (True, []):
+        raise AssertionError(f"sim-mode (n={n}, l=1) bundle fails: {verdict['failures']}")
+    return report
+
+
+def _proves(tag: str, fn, launches: dict, replayed: dict, net=None, repeat: int = 3,
+            g1: bool = False) -> dict:
+    """A warm-up, ``repeat`` synchronised proves (median), then one counted
+    prove whose sampled kernel calls (``_FirstOfLayout``; G1 calls only
+    with ``g1``) are replayed through the plain versions; its digest (and
+    comm, of one prove, with ``net``) against the pins."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(repeat):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    if net is not None:
+        net.reset_comm()
+    with sampled_recording(g1) as kept:
+        out, row = _step(tag, fn, launches)
+    _require(tag, launches, PROTOCOL_PROVE_KERNELS)
+    t0 = time.perf_counter()
+    replayed[tag], _ = replay(kept)
+    replay_s = time.perf_counter() - t0
+    del kept
+    key = f"{tag}_n{PROTOCOL['n']}" + ("" if net is None else f"_l{PROTOCOL['l']}")
+    digest = proof_digest(g1_module.bls12_381_g1(), out)
+    _check_pin(key, digest)
+    report = {"median_s": statistics.median(runs), "runs_s": runs, "counted": row,
+              "digest": f"0x{digest:016x}", "calls_replayed": replayed[tag], "replay_s": replay_s}
+    if net is not None:
+        _check_pin(f"{key}_comm", _comm(net))
+        report["comm"] = list(_comm(net))
+    return report
+
+
+def local_paths(curve, c_plain, launches: dict, replayed: dict) -> dict:
+    """(c): the local provers at n = 16 on the example's random SRS, pinned
+    and timed; then ``local_hyperplonk`` on the honest c-SRS of (a), which
+    ``verify_local_hyperplonk`` must accept."""
+    n = PROTOCOL["n"]
+    srs = srs_random(curve, n + 2, PROTOCOL["local_srs_seed"])
+    # G1 calls held in the local prove only: its MSMs of 2^16 and 2^18
+    # points are this phase's new G1 shapes (local++ makes the same ones)
+    report = {key: _proves(key, lambda fn=fn: fn(n, srs), launches, replayed,
+                           g1=key == "local") for key, fn in LOCAL_PROVERS.items()}
+    del srs
+    ins = local_inputs(curve.fr, n)
+    proof = local_hyperplonk(n, c_plain, ins)
+    verdict = _timed_verify(lambda: verify_local_hyperplonk(n, c_plain, proof, ins))
+    if (verdict["ok"], verdict["failures"]) != (True, []):
+        raise AssertionError(f"local (n={n}) bundle on the honest SRS fails: {verdict['failures']}")
+    report["honest_verify"] = verdict
+    return report
+
+
+def variant_paths(launches: dict, replayed: dict) -> dict:
+    """(d): the three variants at (16, 8) in leader mode, pinned and timed;
+    their G1 calls are the flagship prove's steps at its shapes, which
+    phases 4 and 5 hold, so their field and phase calls are replayed."""
+    n, l = PROTOCOL["n"], PROTOCOL["l"]
+    net = PartyNet(8 * l, mode="leader")
+    pk = packed_proving_parameters(n, l, net)
+    return {key: _proves(key, lambda fn=fn: fn(n, pk, net), launches, replayed, net=net)
+            for key, fn in VARIANTS.items()}
+
+
+def protocol_phase(launches: dict, replayed: dict) -> dict:
+    """Phase 8: (a) the honest SRSs, (b) the sim-mode prove verified, (c)
+    the local provers, (d) the three variants; each step's report printed
+    on a line of its own."""
+    curve = bls12_381_g1()
+    pp = PackedSharingParams(curve.fr, PROTOCOL["l"])
+    srs, report = srs_paths(curve, pp, launches)
+    print(json.dumps({"protocol_srs": report}), flush=True)
+    out = {"srs": report, "sim": sim_path(curve, pp, srs, launches, replayed)}
+    print(json.dumps({"protocol_sim": out["sim"]}), flush=True)
+    del srs["d"], srs["c_packed"]
+    out["local"] = local_paths(curve, srs["c"], launches, replayed)
+    print(json.dumps({"protocol_local": out["local"]}), flush=True)
+    del srs
+    out["variants"] = variant_paths(launches, replayed)
+    print(json.dumps({"protocol_variants": out["variants"]}), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1899,11 +2466,18 @@ def main() -> int:
     _check_pin("sim_comm", _comm(net))
     paths["sim_comm"] = list(_comm(net))
     print(json.dumps({"paths": paths}), flush=True)
+    del net, opened, mono
 
-    # 8. kernel table: launches summed over the paths (gate identity, SRS
+    # 8. the protocol layer: honest SRSs, the sim-mode prove verified, the
+    # local provers and the three variants
+    t0 = time.perf_counter()
+    protocol_phase(launches, replayed)
+    print(json.dumps({"protocol_phase_s": time.perf_counter() - t0}), flush=True)
+
+    # 9. kernel table: launches summed over the paths (gate identity, SRS
     # bases, c_commit, d_commit, c_open, each also non-dense, the prove in
     # both MSM configurations and with SCZK_MXU=1, the SCZK_MXU gate
-    # identity, exp_fieldmul), each counted on its own
+    # identity, exp_fieldmul, and phase 8's steps), each counted on its own
     zero = [k for k in KERNELS
             if not launches["gate_identity"][k] or not replayed["gate_identity"].get(k)]
     msm_paths = ("srs_bases", "c_commit", "d_commit", "c_open")

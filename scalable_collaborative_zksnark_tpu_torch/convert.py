@@ -13,6 +13,7 @@ import torch
 
 from .curves.g1 import PointJ, bls12_381_g1
 from .device import DEFAULT, resolve
+from .hyperplonk.local import LocalInputs
 from .hyperplonk.params import PackedProvingParameters
 from .primitives.poly_comm import PolynomialCommitment
 from .pss.pss import PackedSharingParams
@@ -44,6 +45,37 @@ def points_from_numpy(pt, device=DEFAULT) -> PointJ:
 def points_to_numpy(pt) -> tuple:
     """``PointJ`` -> (x, y, z) ``uint32`` ndarrays with the same bits."""
     return tuple(to_numpy(a) for a in pt)
+
+
+def _is_point(x) -> bool:
+    """Three limb arrays of one shape whose last axis holds an Fq element
+    (24 limbs): a point's (x, y, z), as a tuple or either package's
+    ``PointJ``.  Fr values have 16 limbs, so no bundle field is mistaken."""
+    if not isinstance(x, tuple) or len(x) != 3:
+        return False
+    if any(isinstance(a, (tuple, list)) or not hasattr(a, "shape") for a in x):
+        return False
+    return all(a.shape == x[0].shape for a in x) and x[0].shape[-1:] == (24,)
+
+
+def bundle_from_numpy(bundle, device=DEFAULT):
+    """A proof bundle of either package (nested tuples and lists of
+    ``uint32`` limb arrays and (x, y, z) points, such as the JAX package's
+    bundle with its arrays, or ``np.asarray`` of them) -> the same structure
+    of the port's tensors and ``PointJ``s on ``device``."""
+    if _is_point(bundle):
+        return points_from_numpy(bundle, device)
+    if isinstance(bundle, (tuple, list)):
+        return type(bundle)(bundle_from_numpy(x, device) for x in bundle)
+    return from_numpy(np.asarray(bundle), device)
+
+
+def local_inputs_from_numpy(ins, device=DEFAULT) -> LocalInputs:
+    """The JAX package's ``LocalInputs`` (limb fields as ``uint32`` arrays,
+    or anything ``np.asarray`` takes) -> the port's, on ``device``."""
+    fields = {f.name: getattr(ins, f.name) for f in dataclasses.fields(LocalInputs)}
+    return LocalInputs(**{k: int(v) if k == "n" else from_numpy(np.asarray(v), device)
+                          for k, v in fields.items()})
 
 
 def _point_levels(levels, device):

@@ -17,7 +17,7 @@ import time
 
 import torch
 
-from ..device import DEFAULT, resolve
+from ..device import DEFAULT, resolve, sync
 from ..utils import timer
 
 
@@ -40,12 +40,10 @@ def setup(args) -> torch.device:
     return dev
 
 
-class Timer:
-    """``with Timer() as t: ...`` then ``t.dt``: wall seconds of the block."""
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.dt = time.perf_counter() - self.t0
+def timed(fn, device: torch.device):
+    """(result, seconds) of one run of ``fn``, waiting for the card."""
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, time.perf_counter() - t0

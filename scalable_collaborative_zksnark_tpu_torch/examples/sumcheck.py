@@ -11,24 +11,13 @@ on 2^n evaluations, and reports per-party time and communication bytes:
 from __future__ import annotations
 
 import argparse
-import time
 
-import torch
-
-from ..device import DEFAULT, sync
+from ..device import DEFAULT
 from ..fields.fr import get_field
 from ..mpc.net import PartyNet
 from ..primitives.sumcheck import c_sumcheck_product, sumcheck_product
 from ..pss.pss import PackedSharingParams
-
-
-def _timed(fn, device: torch.device):
-    """(result, seconds) of one run, waiting for the card."""
-    sync(device)
-    t0 = time.perf_counter()
-    out = fn()
-    sync(device)
-    return out, time.perf_counter() - t0
+from .common import timed
 
 
 def main(argv=None):
@@ -51,7 +40,7 @@ def main(argv=None):
     step = lambda: c_sumcheck_product(pp, net, shares_f, shares_g, challenges)  # noqa: E731
     step()  # warm-up: kernel build and first launches
     net.reset_comm()
-    proof, dt = _timed(step, F.device)
+    proof, dt = timed(step, F.device)
     up, down = net.comm(0)
     print(f"c_sumcheck_product n={args.n} l={args.l} mode={args.mode}: "
           f"{dt*1e3:.1f} ms/step, proof {tuple(proof.shape)}, comm up={up} down={down}")
@@ -60,7 +49,7 @@ def main(argv=None):
     evals_g = F.random((1 << args.n,), 5)
     local = lambda: sumcheck_product(F, evals_f, evals_g, challenges)  # noqa: E731
     local()
-    _, dt = _timed(local, F.device)
+    _, dt = timed(local, F.device)
     print(f"local sumcheck_product n={args.n}: {dt*1e3:.1f} ms/step")
 
 

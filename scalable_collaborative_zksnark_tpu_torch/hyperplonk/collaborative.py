@@ -1,13 +1,28 @@
-"""The collaborative HyperPlonk prover ``dhyperplonk`` (dhyperplonk.rs:159-571).
+"""The collaborative HyperPlonk provers and the permcheck variants.
 
-Mirrors ``dhyperplonk`` of the JAX package's ``hyperplonk/collaborative.py``
-and everything it calls: 3 c_commit + 3 d_commit; six gate-identity
-c_sumcheck_product in one batch; the wire identity (the all-to-all witness
-exchange, c/d opens, the grand product via d_acc_product, 8 d_commits and
-5 d_opens, the direct zerocheck, the layered zerocheck over halving slices
-and the leader tree-top); then 3 c_open + 3 d_open.  Same-shape primitive
-calls are stacked on one batch axis, so one collective round serves the
-group, as in the JAX package.
+Mirrors the JAX package's ``hyperplonk/collaborative.py`` (parity:
+dhyperplonk.rs):
+
+* ``dhyperplonk`` (rs:159-571): 3 c_commit + 3 d_commit; six gate-identity
+  c_sumcheck_product in one batch; the wire identity (the all-to-all
+  witness exchange, c/d opens, the grand product via d_acc_product, 8
+  d_commits and 5 d_opens, the direct zerocheck, the layered zerocheck
+  over halving slices and the leader tree-top); then 3 c_open + 3 d_open;
+* ``dhyperplonk_data_parallel`` (rs:573-960): the same without the
+  all-to-all exchange (s stays local, rs:601-604);
+* ``dpermcheck`` (rs:962-1247): the wire-identity section alone, with the
+  exchange;
+* ``cpermcheck`` (rs:1249-1385): the baseline permcheck on PSS shares,
+  num/den and two c_acc_product_and_share pipelines.
+
+Same-shape primitive calls are stacked on one batch axis, so one
+collective round serves the group, as in the JAX package.  Each prover
+ticks the party-net counters once per prove.
+
+The JAX package's documented deviation in ``cpermcheck`` is kept: the
+grand-product share streams (lengths S and S - N^2 / 2l, which the
+reference feeds to power-of-two commits, dpoly_comm.rs:414,257) are
+zero-padded to exactly S.
 
 Share vectors are [P, len, L] (party axis first); plain ``_p`` vectors
 are the 1/N slices.  Leader-only work (the tree top) runs once.  The JAX
@@ -25,7 +40,7 @@ from ..fields.fr import Field
 from ..fields.mxu import Red
 from ..mpc.net import PartyNet
 from ..primitives import mxu_sumcheck
-from ..primitives.acc_product import d_acc_product
+from ..primitives.acc_product import c_acc_product_and_share, d_acc_product
 from ..primitives.poly_comm import c_commit, c_open, c_open_many
 from ..primitives.sumcheck import c_sumcheck_product, d_sumcheck_product, sumcheck_product
 from ..utils.timer import trace as timed
@@ -359,6 +374,19 @@ def _final_opens(pk: PackedProvingParameters, net: PartyNet, coms, c: int):
     return out
 
 
+# prover: (its default seed, the stride of its seed-derived placeholders,
+# seed * stride + k)
+_SEEDS = {"dhyperplonk": (2, 31), "dhyperplonk_data_parallel": (2, 37), "dpermcheck": (3, 41)}
+
+
+def eq_top_table(F: Field, n_parties: int, prover: str = "dhyperplonk",
+                 seed: int | None = None) -> torch.Tensor:
+    """The public tree-top eq table [n_parties] that ``prover`` derives
+    from its ``seed`` (its default if None), as its verifier needs it."""
+    default, stride = _SEEDS[prover]
+    return F.random((n_parties,), (default if seed is None else seed) * stride + 3)
+
+
 def dhyperplonk(n: int, pk: PackedProvingParameters, net: PartyNet, seed: int = 2, c: int = 8,
                 per_layer: bool = False):
     """The collaborative HyperPlonk prover (dhyperplonk.rs:159-571).
@@ -372,7 +400,7 @@ def dhyperplonk(n: int, pk: PackedProvingParameters, net: PartyNet, seed: int = 
     # protocol-internal placeholders, "jump from sky" (rs:187-190)
     local_s_p = F.random((P, gc * 4 // net.n), seed * 31 + 1)
     local_s = F.random((P, gc * 4 // net.n // pk.pp.l), seed * 31 + 2)
-    eq_top = F.random((net.n,), seed * 31 + 3)
+    eq_top = eq_top_table(F, net.n, "dhyperplonk", seed)
 
     net.sync()
     with timed("Distributed HyperPlonk"):
@@ -388,3 +416,87 @@ def dhyperplonk(n: int, pk: PackedProvingParameters, net: PartyNet, seed: int = 
             with timed("Open"):
                 gate_coms = _final_opens(pk, net, coms, c)
     return (gate_proofs, gate_coms), wire
+
+
+def dhyperplonk_data_parallel(n: int, pk: PackedProvingParameters, net: PartyNet, seed: int = 2,
+                              c: int = 8):
+    """The data-parallel-circuit variant (dhyperplonk.rs:573-960): as
+    ``dhyperplonk`` but s stays local, with no all-to-all exchange
+    (rs:601-604)."""
+    F = pk.pp.field
+    gc = 1 << n
+    P = net.local_parties
+    local_s_p = F.random((P, gc * 4 // net.n), seed * 37 + 1)
+    s_shares = F.random((P, gc * 4 // pk.pp.l), seed * 37 + 2)
+    eq_top = eq_top_table(F, net.n, "dhyperplonk_data_parallel", seed)
+
+    net.sync()
+    with timed("Distributed HyperPlonk (data-parallel)"):
+        with timed("Commit"):
+            coms = _commit_step(pk, net, c)
+        with timed("Distributed HyperPlonk Prover"):
+            with timed("Gate identity"):
+                gate_proofs = _gate_identity(pk, net)
+            with timed("Wire identity"):
+                wire = _wire_identity_distributed(n, pk, net, local_s_p, s_shares, eq_top, c)
+            with timed("Open"):
+                gate_coms = _final_opens(pk, net, coms, c)
+    return (gate_proofs, gate_coms), wire
+
+
+def dpermcheck(n: int, pk: PackedProvingParameters, net: PartyNet, seed: int = 3, c: int = 8):
+    """The improved permcheck on its own (dhyperplonk.rs:962-1247): the
+    wire-identity section, with the all-to-all exchange."""
+    F = pk.pp.field
+    gc = 1 << n
+    P = net.local_parties
+    local_s = F.random((P, gc * 4 // net.n // pk.pp.l), seed * 41 + 1)
+    local_s_p = F.random((P, gc * 4 // net.n), seed * 41 + 2)
+    eq_top = eq_top_table(F, net.n, "dpermcheck", seed)
+
+    net.sync()
+    with timed("Distributed Permcheck"):
+        s_shares = _exchange_s(F, net, local_s)
+        return _wire_identity_distributed(n, pk, net, local_s_p, s_shares, eq_top, c)
+
+
+def _pad_rows(F: Field, x: torch.Tensor, S: int) -> torch.Tensor:
+    """A share stream cut or zero-padded to S rows (the module's deviation)."""
+    k = S - x.shape[-2]
+    if k <= 0:
+        return x[..., :S, :]
+    return torch.cat([x, x.new_zeros(x.shape[:-2] + (k, F.L))], dim=-2)
+
+
+def cpermcheck(n: int, pk: PackedProvingParameters, net: PartyNet, c: int = 8):
+    """The baseline collaborative permcheck (dhyperplonk.rs:1249-1385, paper
+    section 4.3): everything on PSS shares, by c_acc_product_and_share."""
+    F = pk.pp.field
+    pp = pk.pp
+    S = pk.V.shape[-2]  # gate_count * 4 / l shares a party
+
+    net.sync()
+    proofs, commits, opens = [], [], []
+    with timed("Collaborative Permcheck"):
+        with timed("Local: calculate num and den"):
+            num = F.add(F.add(pk.V, F.mul(pk.alpha, pk.sid)), pk.beta)
+            den = F.add(F.add(pk.eq_r1, F.mul(pk.alpha, pk.ssigma)), pk.beta)
+        commits += _unstack_pt(c_commit(pk.c_commitment, pp, net, [pk.ssigma, pk.sid], c=c), 2)
+        ov, opi = c_open(pk.c_commitment, pp, net, _stackp([pk.ssigma, pk.sid]),
+                         pk.challenge_r1, c=c)
+        opens += [(ov[:, b], type(opi)(*(a[:, b] for a in opi))) for b in range(2)]
+        for evals in (num, den):
+            streams = c_acc_product_and_share(pp, net, evals, pk.mask, pk.unmask0, pk.unmask1,
+                                              pk.unmask2)
+            vx0, vx1, v1x = (_pad_rows(F, x, S) for x in streams)
+            commits += _unstack_pt(c_commit(pk.c_commitment, pp, net, [evals, vx0, vx1, v1x],
+                                            c=c), 4)
+            # the 4 opens between the commits and the final evaluation check
+            # (rs:1371-1375): 5 same-shape, same-point opens in one batch
+            ov, opi = c_open(pk.c_commitment, pp, net, _stackp([evals, vx0, vx1, v1x, evals]),
+                             pk.challenge_r1, c=c)
+            opens += [(ov[:, b], type(opi)(*(a[:, b] for a in opi))) for b in range(5)]
+            sc3 = c_sumcheck_product(pp, net, _stackp([pk.eq_r1, pk.eq_r1, vx0]),
+                                     _stackp([v1x, vx0, vx1]), pk.challenge_r1)
+            proofs += _unstack(sc3, 3, axis=1)
+    return proofs, commits, opens

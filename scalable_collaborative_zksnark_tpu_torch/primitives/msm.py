@@ -384,9 +384,11 @@ def msm_ragged(curve: Curve, bases_list, scalars_list, c: int | None = None,
                affine: bool = False, chunk: int | None = RAGGED_CHUNK):
     """MSMs of different sizes in one bucket pass.
 
-    ``bases_list[i]``: PointJ broadcastable to [B..., N_i] (batch-free
-    bases broadcast); ``scalars_list[i]``: [B..., N_i, L], all with the
-    same batch shape.  Returns a list of PointJ [B...], one per entry.
+    ``bases_list[i]``: PointJ [b..., N_i] whose batch dims align as
+    prefixes of the scalars' (as in ``msm``: per-party bases [P, N_i] serve
+    scalars [P, B, N_i]; batch-free bases broadcast); ``scalars_list[i]``:
+    [B..., N_i, L], all with the same batch shape.  Returns a list of
+    PointJ [B...], one per entry.
     The non-dense core splits segments into chunks of at most ``chunk``
     points and adds the chunk partials; the dense core does not chunk."""
     batch = scalars_list[0].shape[:-2]
@@ -396,9 +398,7 @@ def msm_ragged(curve: Curve, bases_list, scalars_list, c: int | None = None,
         if s.shape[:-2] != batch:
             raise ValueError(f"scalar batch {tuple(s.shape[:-2])} != {tuple(batch)}")
         n_i = s.shape[-2]
-        pts.append(map_points(lambda a: a.reshape((1,) * (len(batch) + 2 - a.ndim) + a.shape)
-                              .expand(batch + (n_i, a.shape[-1])).reshape(Bn * n_i, a.shape[-1]),
-                              b))
+        pts.append(map_points(lambda a: _align(a, batch).reshape(Bn * n_i, a.shape[-1]), b))
         scs.append(s.reshape(Bn * n_i, s.shape[-1]))
         sizes += [n_i] * Bn  # batch-major segments per entry
     scal = torch.cat(scs)

@@ -242,32 +242,74 @@ class PolynomialCommitment:
 # ---------------------------------------------------------------------------
 # SRS constructors
 # ---------------------------------------------------------------------------
-def _tensor_levels(g1_aff, factors, r: int):
-    """Host affine levels by tensor doubling: level i+1 = (1 - f_i) * level
-    i followed by f_i * level i."""
-    levels = [[g1_aff]]
+def _tensor_scalars(F, factors) -> List[torch.Tensor]:
+    """The scalars of the tensor levels, as Fr tensors on ``F``'s device:
+    level 0 is [1], level i + 1 is (1 - f_i) level i followed by f_i level
+    i (dpoly_comm.rs:37-67's order of the factors)."""
+    r = F.p
+    levels = [F.const(1, (1,))]
     for f in factors:
         f %= r
         prev = levels[-1]
-        levels.append([hc.g1_mul(pt, (1 - f) % r) for pt in prev] + [hc.g1_mul(pt, f) for pt in prev])
+        levels.append(torch.cat([F.mul(F.const((1 - f) % r), prev), F.mul(F.const(f), prev)],
+                                dim=-2))
     return levels
 
 
-def srs_from_secret(curve: Curve, g1_aff, g2_aff, s_ints, n_parties: int = 1):
-    """Exact SRS from a (test) secret vector s, host-built
-    (``PolynomialCommitmentCub::new``, dpoly_comm.rs:37-67); with
+def _ladder_levels(curve: Curve, g1_aff, scalar_levels) -> List[PointJ]:
+    """g1 times every scalar of ``scalar_levels`` (Montgomery Fr tensors
+    [..., L] of any batch shapes): one ladder launch from the fixed
+    generator over all of them, one batch normalization, split back."""
+    F = curve.fr
+    flat = torch.cat([w.reshape(-1, F.L) for w in scalar_levels], dim=0)
+    g = curve.from_affine_ints([g1_aff])
+    pts = curve.normalize(curve.scalar_mul(g, F.decode(flat)))
+    out, off = [], 0
+    for w in scalar_levels:
+        m = math.prod(w.shape[:-1])
+        out.append(map_points(lambda a, o=off, m=m, shp=w.shape[:-1]: a[o:o + m].reshape(
+            shp + a.shape[-1:]), pts))
+        off += m
+    return out
+
+
+def _packed_scalars(F, pp: PackedSharingParams, w: torch.Tensor) -> torch.Tensor:
+    """A level's scalars [2^k, L] (zero-padded to l) packed per party:
+    [n, max(2^k / l, 1), L], share j of chunk c = sum_i M[j, i] w[c l + i]."""
+    sz = w.shape[-2]
+    if sz < pp.l:
+        w = torch.cat([w, F.zeros((pp.l - sz,))], dim=-2)
+    chunks = w.reshape(-1, pp.l, F.L)  # [C, l]
+    mt = F.array_from_ints(pp.pack_matrix().T)  # [l, n]
+    acc = None
+    for i in range(pp.l):
+        term = F.mul(chunks[:, i, None, :], mt[i])  # [C, n]
+        acc = term if acc is None else F.add(acc, term)
+    return acc.movedim(0, 1)
+
+
+def srs_from_secret(curve: Curve, g1_aff, g2_aff, s_ints, n_parties: int = 1,
+                    pp: Optional[PackedSharingParams] = None):
+    """Exact SRS from a (test) secret vector s (``PolynomialCommitmentCub::new``,
+    dpoly_comm.rs:37-67), built on ``curve``'s device: each level's scalars
+    are Fr tensor products of the factors s_i and 1 - s_i, and every point
+    is one ladder from ``g1_aff`` (all levels in one launch).  With
     n_parties > 1 also the honest distributed extension, keyed by the
     committed polynomial's total variable count m_total (its party-prefix
-    variables are s_ints[n - m_total .. n - m_total + log2 N])."""
+    variables are s_ints[n - m_total .. n - m_total + log2 N]); the party
+    weights are host ints.  With ``pp`` also ``packed_powers``, the points
+    of ``srs_packed(srs, pp)`` packed from the same scalars: share j of
+    chunk c is (sum_i M[j, i] w[c l + i]) g1, one ladder a (chunk, party)
+    in the same launch."""
     n = len(s_ints)
-    r = curve.fr.p
-    levels_host = _tensor_levels(g1_aff, [s_ints[n - i - 1] for i in range(n)], r)
-    powers_of_g = [curve.from_affine_ints(lv) for lv in levels_host]
+    F = curve.fr
+    r = F.p
+    scalars = _tensor_scalars(F, [s_ints[n - i - 1] for i in range(n)])
     powers_of_g2 = [g2_aff] + [hc.g2_mul(g2_aff, si % r) for si in s_ints]
-    party_weights = root_levels = None
+    party_weights, root_scalars = None, {}
     if n_parties > 1:
         sbits = n_parties.bit_length() - 1
-        party_weights, root_levels = {}, {}
+        party_weights = {}
         for m_total in range(sbits, n + 1):
             base = n - m_total
             w_arr = np.empty((n_parties,), dtype=object)
@@ -278,32 +320,39 @@ def srs_from_secret(curve: Curve, g1_aff, g2_aff, s_ints, n_parties: int = 1):
                     w = w * (f if (p >> (sbits - 1 - i)) & 1 else (1 - f) % r) % r
                 w_arr[p] = w
             party_weights[m_total] = w_arr
-            rl_host = _tensor_levels(g1_aff, [s_ints[base + sbits - i - 1] for i in range(sbits)], r)
-            root_levels[m_total] = [curve.from_affine_ints(lv) for lv in rl_host[:sbits]]
-    return PolynomialCommitment(curve, powers_of_g, powers_of_g2, party_weights, root_levels,
-                                affine=True)
+            root_scalars[m_total] = _tensor_scalars(
+                F, [s_ints[base + sbits - i - 1] for i in range(sbits)])[:sbits]
+    packed = [] if pp is None else [_packed_scalars(F, pp, w) for w in scalars]
+    pts = _ladder_levels(curve, g1_aff, scalars + [w for lv in root_scalars.values() for w in lv]
+                         + packed)
+    rest = iter(pts[n + 1:])
+    root_levels = {k: [next(rest) for _ in lv] for k, lv in root_scalars.items()} or None
+    return PolynomialCommitment(curve, pts[:n + 1], powers_of_g2, party_weights, root_levels,
+                                packed_powers=list(rest) or None, affine=True)
 
 
 def srs_ugly(curve: Curve, g1_aff, g2_aff, s_ints, party_count: int):
     """The reference's ``new_ugly`` (dpoly_comm.rs:69-113): the first
     log2(party_count) levels tensor over s[log_party - 1], ..., s[0], then
-    the standard factors s[n - i - 1].  Value-inconsistent by construction,
-    like the reference's: it is size- and cost-faithful only."""
+    the standard factors s[n - i - 1]; built on the device as
+    ``srs_from_secret``.  Value-inconsistent by construction, like the
+    reference's: it is size- and cost-faithful only."""
     n = len(s_ints)
-    r = curve.fr.p
     log_party = party_count.bit_length() - 1
     if party_count != 1 << log_party:
         raise ValueError(f"party count {party_count} is not a power of two")
     factors = [s_ints[log_party - i - 1] if i < log_party else s_ints[n - i - 1] for i in range(n)]
-    powers_of_g = [curve.from_affine_ints(lv) for lv in _tensor_levels(g1_aff, factors, r)]
-    powers_of_g2 = [g2_aff] + [hc.g2_mul(g2_aff, si % r) for si in s_ints]
+    powers_of_g = _ladder_levels(curve, g1_aff, _tensor_scalars(curve.fr, factors))
+    powers_of_g2 = [g2_aff] + [hc.g2_mul(g2_aff, si % curve.fr.p) for si in s_ints]
     return PolynomialCommitment(curve, powers_of_g, powers_of_g2, affine=True)
 
 
 def srs_packed(srs: PolynomialCommitment, pp: PackedSharingParams) -> PolynomialCommitment:
     """The SRS points packed into PSS shares per party (``to_packed``,
-    dpoly_comm.rs:164-194), levels shorter than l zero-padded first:
-    ``packed_powers[k]`` is PointJ [N, max(2^k / l, 1)]."""
+    dpoly_comm.rs:164-194), levels shorter than l padded with infinity
+    first: ``packed_powers[k]`` is PointJ [N, max(2^k / l, 1)].  An SRS
+    from known secrets packs faster from its scalars
+    (``srs_from_secret(..., pp=pp)``)."""
     curve = srs.curve
     packed = []
     for lv in srs.powers_of_g:

@@ -16,8 +16,9 @@ Mirrors the JAX package's ``pss/pss.py`` (itself the reference's
 Every op is linear, so each is also exposed as a host-built matrix over
 Python ints (``*_matrix``); ``convert.check_pss_matrices`` holds them to
 the JAX package's.  The G1 methods apply the same maps to points
-(``Curve.linear_map``); the G2 methods, which need host G2 arithmetic,
-are not ported yet.
+(``Curve.linear_map``); the G2 methods apply them to host G2 affine
+points (``host_curve.g2_linear_map``): G2 lives only on the SRS and
+verifier side.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import functools
 import numpy as np
 import torch
 
+from ..curves.host_curve import g2_linear_map
 from ..fields.fr import Field
 from ..ntt.ntt import Domain, intt, ntt
 
@@ -198,3 +200,17 @@ class PackedSharingParams:
 
     def unpack2_group(self, curve, shares):
         return curve.linear_map(self.unpack2_matrix(), shares)
+
+    # ------------------------------------------------------------------
+    # G2 path (host-int affine points; the reference's DomainCoeff
+    # genericity over G2, pss.rs:69)
+    # ------------------------------------------------------------------
+    def pack_from_public_g2(self, pts):
+        """[l] host G2 affine points -> [n] share points."""
+        return g2_linear_map(self.pack_matrix(), pts)
+
+    def unpack_g2(self, shares):
+        return g2_linear_map(self.unpack_matrix(), shares)
+
+    def unpack2_g2(self, shares):
+        return g2_linear_map(self.unpack2_matrix(), shares)

@@ -1,7 +1,9 @@
 """The elementwise kernel on operands read through their strides, the G1
 kernels (also the team kernels at the prove's shapes), the dense MSM, the
 strided Fr products, the int8 engine and the fold-phase kernel on the
-card, against the plain versions.  Every test here needs a CUDA card and
+card, against the plain versions; the honest SRS built on the card against
+the CPU build, and the port's sim-mode bundle proved there against the
+verifier.  Every test here needs a CUDA card and
 skips without one; the file imports nothing of JAX, so it also runs where
 JAX is not installed (``tests/conftest.py`` imports it, hence
 ``--noconftest``):
@@ -219,3 +221,57 @@ def test_binary_cases_match_plain_on_card(cuda, field):
             assert kern.launches == before + 1
             assert all(torch.equal(a, b) for a, b in zip(out, kern.plain(C.fq.spec, *args),
                                                          strict=True)), name
+
+
+def _secrets(n_vars: int, seed: int) -> list:
+    return chip_smoke._secrets(n_vars, seed)
+
+
+@pytest.mark.gpu
+def test_sim_bundle_verifies_on_card(cuda):
+    """The port's own sim-mode (4, 1) ``dhyperplonk`` bundle, proved on the
+    card from consistent shares and honest SRSs built there, passes the
+    complete verifier with its pairings."""
+    from scalable_collaborative_zksnark_tpu_torch.curves import host_curve as hc
+    from scalable_collaborative_zksnark_tpu_torch.hyperplonk import dhyperplonk
+    from scalable_collaborative_zksnark_tpu_torch.hyperplonk.params import (
+        consistent_proving_parameters)
+    from scalable_collaborative_zksnark_tpu_torch.hyperplonk.verify import verify_dhyperplonk
+    from scalable_collaborative_zksnark_tpu_torch.mpc.net import PartyNet
+    from scalable_collaborative_zksnark_tpu_torch.hyperplonk.collaborative import eq_top_table
+    from scalable_collaborative_zksnark_tpu_torch.primitives.poly_comm import srs_from_secret
+    from scalable_collaborative_zksnark_tpu_torch.pss.pss import PackedSharingParams
+
+    C = bls12_381_g1(cuda)
+    n, l = 4, 1
+    net = PartyNet(8 * l, mode="sim")
+    pp = PackedSharingParams(C.fr, l)
+    d = srs_from_secret(C, hc.G1_GEN, hc.G2_GEN, _secrets(n + 2, 31), n_parties=net.n)
+    c_srs = srs_from_secret(C, hc.G1_GEN, hc.G2_GEN, _secrets(n + 2, 37), pp=pp)
+    pk, g = consistent_proving_parameters(n, l, net, {"c": c_srs, "d": d}, curve=C)
+    proof = dhyperplonk(n, pk, net, c=4)
+    assert verify_dhyperplonk(pp, c_srs, d, proof, g, pk.challenge, pk.challenge_r2,
+                              eq_top_table(C.fr, net.n)) == (True, [])
+
+
+@pytest.mark.gpu
+def test_srs_on_card_matches_cpu(cuda):
+    """The honest SRS at 8 variables with 8 parties, and its packing for
+    l = 1, built on the card equal the same built through the plain
+    versions on the CPU, point for point in affine limbs."""
+    from scalable_collaborative_zksnark_tpu_torch.curves import host_curve as hc
+    from scalable_collaborative_zksnark_tpu_torch.primitives.poly_comm import srs_from_secret
+    from scalable_collaborative_zksnark_tpu_torch.pss.pss import PackedSharingParams
+
+    s = _secrets(8, 17)
+    built = {}
+    for dev in (cuda, torch.device("cpu")):
+        C = bls12_381_g1(dev)
+        srs = srs_from_secret(C, hc.G1_GEN, hc.G2_GEN, s, n_parties=8,
+                              pp=PackedSharingParams(C.fr, 1))
+        levels = (srs.powers_of_g + [lv for k in sorted(srs.root_levels)
+                                     for lv in srs.root_levels[k]] + srs.packed_powers)
+        built[dev.type] = [torch.stack(tuple(pt)).cpu() for pt in levels]
+    assert len(built["cuda"]) == len(built["cpu"])
+    for a, b in zip(built["cuda"], built["cpu"]):
+        assert torch.equal(a, b)

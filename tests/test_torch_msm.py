@@ -113,6 +113,22 @@ def test_msm_ragged(curves, data, gate):
     assert [T.to_affine_ints(g) for g in got] == [J.to_affine_ints(w) for w in want]
 
 
+def test_msm_ragged_per_party_bases(curves, data):
+    """Per-party bases [P, N_i] align as prefixes of scalars [P, B, N_i]
+    (a sim-mode c_open's batched q-vectors over srs_packed's levels): each
+    entry equals the JAX package's ``msm`` of its party's bases."""
+    T, J = curves
+    pts, scal = data
+    P, B, sizes = 2, 3, (8, 4)
+    bases = [jax.tree.map(lambda a, n=n, o=o: a[o:o + P * n].reshape(P, n, -1), pts)
+             for n, o in zip(sizes, (0, 40))]
+    scals = [np.stack([scal[:B, 50 * p:50 * p + n] for p in range(P)]) for n in sizes]
+    got = msm.msm_ragged(T, [_port(b) for b in bases],
+                         [convert.from_numpy(s, "cpu") for s in scals])
+    want = [jmsm.msm(J, b, jnp.asarray(s)) for b, s in zip(bases, scals)]
+    assert [T.to_affine_ints(g) for g in got] == [J.to_affine_ints(w) for w in want]
+
+
 def test_chunked_dense_core(curves, data, monkeypatch):
     """Windows in chunks (MAX_DENSE_ENTRIES exceeded): 64 windows of c = 4
     over 40 entries run as chunks of 25, 25 and 14, with the signed-digit

@@ -15,6 +15,8 @@ from scalable_collaborative_zksnark_tpu_torch.curves import cuda_g1
 from scalable_collaborative_zksnark_tpu_torch.curves import g1 as g1_module
 from scalable_collaborative_zksnark_tpu_torch.curves.g1 import PointJ, bls12_381_g1, map_points
 from scalable_collaborative_zksnark_tpu_torch.examples import bench_micro, common
+from scalable_collaborative_zksnark_tpu_torch.examples import hyperplonk as hp_example
+from scalable_collaborative_zksnark_tpu_torch.examples import permcheck as pc_example
 from scalable_collaborative_zksnark_tpu_torch.examples import sumcheck as example
 from scalable_collaborative_zksnark_tpu_torch.fields import cuda_fr, mxu
 from scalable_collaborative_zksnark_tpu_torch.fields import fr as fr_module
@@ -91,6 +93,20 @@ def test_entry_points_default_to_cuda(no_cuda):
     assert get_field("bls12_381_fr", device="cpu").device.type == "cpu"
     assert bls12_381_g1("cpu").device.type == "cpu"
     assert convert.from_numpy(np.zeros((2, 16), np.uint32), "cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("argv", [
+    ["--variant", "local", "--n", "2"], ["--variant", "dist", "--n", "4", "--l", "1"],
+    ["--variant", "dist", "--n", "4", "--l", "1", "--mode", "sim", "--verify"]])
+def test_hyperplonk_example_defaults_to_cuda(no_cuda, argv):
+    with pytest.raises(RuntimeError, match="cuda"):
+        hp_example.main(argv)
+
+
+@pytest.mark.parametrize("variant", ["c", "d"])
+def test_permcheck_example_defaults_to_cuda(no_cuda, variant):
+    with pytest.raises(RuntimeError, match="cuda"):
+        pc_example.main(["--variant", variant, "--n", "4", "--l", "1"])
 
 
 def test_chip_smoke_refuses_without_card(no_cuda, capsys):
