@@ -88,6 +88,15 @@ Phases (any failure raises and exits non-zero):
    the ``scripts/exp_fieldmul.py`` path at 2^20 with its counts set to 0
    just before it: four formulations equal, both strided kernels
    launched, the product pinned;
+5b. the (16, 8) benchmark SRS through the disk cache (``SCZK_SRS_CACHE``
+   on a temporary directory): build, write, file size and load timed,
+   every loaded point equal to the built one, and a
+   ``packed_proving_parameters`` call that must load it proving the
+   flagship pin and comm; ``bench --conformance`` (the (6, 1) prove)
+   must print PASS; the measurement
+   scripts once each, their output parsed: ``pin_digest`` at (16, 8)
+   prints the pin, ``sweep --suite hyperplonk --n 10 --l 2`` writes its
+   CSV, ``profile_primitives`` at (16, 8) and ``g1_micro`` time every row;
 6. the reference's sumcheck envelope, l = 32, with the seeds of
    ``examples/sumcheck.py``: ``c_sumcheck_product`` at n = 26 (pinned),
    local ``sumcheck_product`` at n = 20 (pinned), ``c_sumcheck_product``
@@ -117,15 +126,20 @@ Phases (any failure raises and exits non-zero):
    same secrets, which the complete verifier with its pairings accepts;
    (c) ``local_hyperplonk`` and ``local_hyperplonkpp`` at n = 16 on
    ``srs_random(curve, 18, 7)``, median of three synchronised proves after a
-   warm-up, digests pinned, and ``local_hyperplonk`` on the honest c-SRS of
-   (a), which ``verify_local_hyperplonk`` must accept;
+   warm-up, digests pinned, one prove each with ``SCZK_MXU=1`` pinned, and
+   ``local_hyperplonk`` on the honest c-SRS of (a), which
+   ``verify_local_hyperplonk`` must accept;
    (d) ``dhyperplonk_data_parallel``, ``dpermcheck`` and ``cpermcheck`` at
    (16, 8) in leader mode, median of three after a warm-up, digest and comm
-   of one prove pinned.  Of each counted prove and of the (16, 8)
-   verifier run, the first field- and phase-kernel call at each operand
-   layout is replayed through the plain version, and in the local prove
-   and the verifier also the first call of each G1 kernel (the variants'
-   G1 calls have the flagship prove's shapes);
+   of one prove pinned, then one prove of each with ``SCZK_MSM_DENSE=0``
+   and one with ``SCZK_MXU=1``, each counted on its own, against the same
+   pins.  The (16, 8) sim prove of (b) also runs once with
+   ``SCZK_MSM_DENSE=0`` and once with ``SCZK_MXU=1``, each counted on its
+   own, to the default prove's bundle and comm.  Of each counted prove
+   and of the (16, 8) verifier run, the first field- and phase-kernel
+   call at each operand layout is replayed through the plain version, and
+   in the local prove and the verifier also the first call of each G1
+   kernel (the variants' G1 calls have the flagship prove's shapes);
 9. print the kernel table (one JSON line) and last
    ``{"ok": true, "device": {...}}``.
 
@@ -145,12 +159,16 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import csv
+import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -176,6 +194,7 @@ from scalable_collaborative_zksnark_tpu_torch.hyperplonk import (cpermcheck, dhy
                                                                   packed_proving_parameters,
                                                                   verify_local_hyperplonk)
 from scalable_collaborative_zksnark_tpu_torch.hyperplonk import collaborative as collab_module
+from scalable_collaborative_zksnark_tpu_torch.hyperplonk import params as params_module
 from scalable_collaborative_zksnark_tpu_torch.hyperplonk.collaborative import eq_top_table
 from scalable_collaborative_zksnark_tpu_torch.hyperplonk.params import (
     consistent_proving_parameters)
@@ -195,7 +214,9 @@ from scalable_collaborative_zksnark_tpu_torch.primitives.sumcheck import (
     sumcheck_product,
 )
 from scalable_collaborative_zksnark_tpu_torch.pss.pss import PackedSharingParams
-from scalable_collaborative_zksnark_tpu_torch.scripts import exp_fieldmul, mxu_micro
+from scalable_collaborative_zksnark_tpu_torch.scripts import (exp_fieldmul, g1_micro, mxu_micro,
+                                                               pin_digest, profile_primitives,
+                                                               sweep)
 from scalable_collaborative_zksnark_tpu_torch.utils import timer
 from scalable_collaborative_zksnark_tpu_torch.utils.digest import (
     limb_digest,
@@ -276,6 +297,15 @@ PROTOCOL_PROVE_KERNELS = ("fr_mul", "fr_add", "fr_sub", "sumcheck_product_phase"
 C_OPEN_PHASE2_FAILURES = [f"c_open[{p}]: pairing check" for p in "abc"]
 LOCAL_PROVERS = {"local": local_hyperplonk, "localpp": local_hyperplonkpp}
 VARIANTS = {"dp": dhyperplonk_data_parallel, "dperm": dpermcheck, "cperm": cpermcheck}
+# the kernels a phase-8 prove must launch in each engine configuration
+# other than the default: the non-dense MSM cores and the int8 engine
+CONFIG_PROVE_KERNELS = {
+    "nondense": tuple(k for k in PROTOCOL_PROVE_KERNELS if k != "g1_accumulate")
+    + ("g1_add_masked",),
+    "mxu": tuple(k for k in PROTOCOL_PROVE_KERNELS if k != "sumcheck_product_phase"),
+}
+# the measurement scripts' runs on the card: sweep's cells
+SWEEP = {"suite": "hyperplonk", "n": 10, "l": 2}
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 IMAD_PER_SM_CLOCK = 64  # 32-bit integer multiply(-add) per SM per clock, cc 9.0
@@ -1276,13 +1306,37 @@ def recording():
         g1_module.cuda_g1 = msm_module.cuda_g1 = cuda_g1
 
 
+# Horner's plain version walks ~256 doubles and W adds one after the
+# other; on at most this many window totals its small tensor ops run
+# 2-3x faster on host copies of the operands than as launches on the card
+# (the same int64 arithmetic, so the same bits).  On an H100 machine's
+# host, bucket-serial and the ladder, and Horner on the sim prove's wider
+# grids, replayed slower than on the card, so they stay there.
+HOST_REPLAY_POINTS = 4096
+
+
+def _on_host(x):
+    """``x`` with every tensor copied to the host (nested tuples and lists kept)."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, PointJ):
+        return PointJ(*(_on_host(a) for a in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_on_host(a) for a in x)
+    return x
+
+
 def replay(calls) -> tuple[dict, dict]:
     """Each recorded call's result against the plain version on the same
-    operands.  Returns ({kernel: calls replayed}, {kernel: largest
-    difference found}); raises on any difference."""
+    operands (Horner's on host copies up to ``HOST_REPLAY_POINTS`` window
+    totals).  Returns ({kernel:
+    calls replayed}, {kernel: largest difference found}); raises on any
+    difference."""
     seen, errs = {}, {}
     for key, args, out in calls:
         if key.startswith("g1_"):
+            if key == "g1_horner" and args[1][0].shape[:-1].numel() <= HOST_REPLAY_POINTS:
+                args, out = _on_host(args), _on_host(out)
             try:
                 err = _equal(key, out, getattr(cuda_g1, key[3:]).plain(*args))
             except AssertionError as exc:
@@ -1353,6 +1407,10 @@ def mxu_config():
     each round loop), every product and single sumcheck on
     ``mxu_sumcheck``."""
     return _env("SCZK_MXU", "1")
+
+
+# the engine configurations other than the default, each a fresh block
+ENGINE_CONFIGS = {"nondense": lambda: msm_config(False), "mxu": mxu_config}
 
 
 class _LoopEnds:
@@ -1817,6 +1875,129 @@ def fieldmul_path(launches: dict) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5b: the SRS cache, the bench entry's conformance and the
+# measurement scripts
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def _no_srs_build():
+    """Inside the block ``benchmark_srs`` raises: an SRS must come from the cache."""
+    build = params_module.benchmark_srs
+
+    def refuse(*args):
+        raise AssertionError("the benchmark SRS was built, not loaded from the cache")
+    params_module.benchmark_srs = refuse
+    try:
+        yield
+    finally:
+        params_module.benchmark_srs = build
+
+
+def _same_points(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def srs_cache_phase(launches: dict) -> dict:
+    """The (16, 8) benchmark SRS through the disk cache (``SCZK_SRS_CACHE``
+    on a temporary directory): its build, the file's write, size and load
+    (host seconds, synchronised), every loaded point equal to the built
+    one; then ``packed_proving_parameters`` with the variable set, which
+    must load it (building raises), proves the flagship pin and comm,
+    counted on its own."""
+    n, l = PROVE["n"], PROVE["l"]
+    curve = bls12_381_g1()
+    pp = PackedSharingParams(curve.fr, l)
+    report = {}
+    with tempfile.TemporaryDirectory() as root:
+        path = params_module.srs_cache_path(curve, n, pp, 1, root)
+        timed = {}
+        for step, fn in (("build", lambda: params_module.benchmark_srs(curve, n, pp)),
+                         ("write", lambda: params_module.save_srs_cache(path, built)),
+                         ("load", lambda: params_module.load_srs_cache(path, curve))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            timed[f"{step}_s"] = time.perf_counter() - t0
+            if step == "build":
+                built = out
+        loaded = out
+        report.update(timed, file=path.name, file_bytes=path.stat().st_size)
+        for key in ("c", "d"):
+            for field in ("powers_of_g", "root_levels", "packed_powers"):
+                a, b = getattr(built[key], field), getattr(loaded[key], field)
+                if (a is None) != (b is None) or not all(map(_same_points, a or [], b or [])):
+                    raise AssertionError(f"the cached SRS's {key}.{field} differs from the built")
+        del built, loaded
+        net = PartyNet(8 * l, mode="leader")
+        with _env("SCZK_SRS_CACHE", root), _no_srs_build():
+            t0 = time.perf_counter()
+            pk = packed_proving_parameters(n, l, net)
+            torch.cuda.synchronize()
+            report["setup_from_cache_s"] = time.perf_counter() - t0
+    net.reset_comm()
+    out, report["prove"] = _step("prove_cached_srs", lambda: dhyperplonk(n, pk, net), launches)
+    _require("prove_cached_srs", launches, PROVE_DENSE_KERNELS)
+    _check_pin(f"prove_n{n}_l{l}", proof_digest(pk.curve, out))
+    _check_pin(f"prove_n{n}_l{l}_comm", _comm(net))
+    return report
+
+
+def conformance_phase() -> dict:
+    """``bench --conformance`` on the card: the pinned (6, 1) prove must PASS."""
+    out = bench_module.conformance("cuda")
+    if out["verdict"] != "PASS":
+        raise AssertionError(f"bench --conformance: {out}")
+    return out
+
+
+def _captured(main, argv) -> tuple[int, str, float]:
+    """(exit code, standard output, host seconds) of a script's
+    ``main(argv)``, run in this process."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def scripts_phase() -> dict:
+    """The measurement scripts once each on the card, their output parsed:
+    ``pin_digest`` at (16, 8) prints the flagship pin, ``sweep`` at
+    ``SWEEP`` writes its CSV with the JAX script's columns, and
+    ``profile_primitives`` (at (16, 8)) and ``g1_micro`` print a warm time
+    for every row."""
+    n, l = PROVE["n"], PROVE["l"]
+    report = {}
+    rc, out, dt = _captured(pin_digest.main, ["--n", str(n), "--l", str(l)])
+    m = re.fullmatch(r"\((\d+), (\d+)\): 0x([0-9A-F]{16})", out.strip())
+    if rc or not m or int(m.group(3), 16) != PINS[f"prove_n{n}_l{l}"]:
+        raise AssertionError(f"pin_digest printed {out!r} (exit {rc})")
+    report["pin_digest"] = {"line": out.strip(), "s": dt}
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "sweep.csv")
+        rc, out, dt = _captured(sweep.main, ["--suite", SWEEP["suite"], "--n", str(SWEEP["n"]),
+                                             "--l", str(SWEEP["l"]), "--out", path])
+        with open(path, newline="") as fh:
+            rows = list(csv.DictReader(fh))
+    if rc or len(rows) != 1 or tuple(rows[0]) != sweep.COLUMNS or rows[0]["backend"] != "cuda" \
+            or not float(rows[0]["seconds"]) > 0 or not int(rows[0]["up_bytes"]) > 0:
+        raise AssertionError(f"sweep wrote {rows} (exit {rc})")
+    report["sweep"] = {"row": rows[0], "s": dt}
+    for name, main, argv, want in (
+            # 13 steps and the zerocheck layer at 2^11, 2^9 and 2^7
+            ("profile_primitives", profile_primitives.main, ["--n", str(n), "--l", str(l)], 16),
+            # the accumulate, the point adds, the ladders and the Horner shapes
+            ("g1_micro", g1_micro.main, [], 2 + len(g1_micro.LADDER) + len(g1_micro.HORNER))):
+        rc, out, dt = _captured(main, argv)
+        rows = re.findall(r"^(\S.*?)\s+warm\s+([0-9.]+) ms", out, flags=re.M)
+        if rc or len(rows) != want or not all(float(t) > 0 for _, t in rows):
+            raise AssertionError(f"{name} printed {out!r} (exit {rc})")
+        report[name] = {"warm_ms": {k.strip(): float(t) for k, t in rows}, "s": dt}
+    return report
+
+
+# ---------------------------------------------------------------------------
 # Phase 8: the protocol layer
 # ---------------------------------------------------------------------------
 def _step(tag: str, fn, launches: dict):
@@ -2122,24 +2303,28 @@ def srs_paths(curve, pp, launches: dict) -> tuple[dict, dict]:
 
 
 def _sim_prove_verify(tag: str, curve, pp, srs: dict, launches: dict, replayed: dict,
-                      hold: bool = True):
+                      hold: bool = True, configs=()):
     """``dhyperplonk`` in sim mode, all 8l parties on the card, on consistent
     shares with the honest SRSs ``srs`` (c plain, c packed, d), then the
     complete verifier with its pairings, each a step.  With ``hold``, one
     more prove, which must prove the same bundle, whose field and phase
     calls at each operand layout and G1 calls at each layout of its c-side
-    commits and opens (``_ReplayEachLayout``) are replayed through the
-    plain versions as they return, and the verifier's sampled kernel calls
-    replayed.  Returns (report, the verifier's
-    verdict, the verifier without pairings, a gate-section check on a
-    corrupted copy)."""
+    commits and opens (``_ReplayEachLayout``) are replayed through the plain
+    versions as they return, and the verifier's sampled kernel calls
+    replayed.  Then one prove in each engine configuration of ``configs``
+    (``ENGINE_CONFIGS``), counted on its own, which must give the default
+    prove's bundle, which the verifier holds, and its comm; no kernel call
+    of these is replayed.  Returns (report, the verifier's verdict, the
+    verifier without pairings, a gate-section check on a corrupted copy)."""
     n = PROTOCOL["n"]
     net = PartyNet(pp.n, mode="sim")
     pk, g = consistent_proving_parameters(n, pp.l, net, {"c": srs["c_packed"], "d": srs["d"]},
                                           curve=curve)
     proof, row = _step(f"{tag}_prove", lambda: dhyperplonk(n, pk, net), launches)
     _require(f"{tag}_prove", launches, PROTOCOL_PROVE_KERNELS)
-    report = {"prove": row, "parties": pp.n, "l": pp.l}
+    digest, comm = proof_digest(curve, proof), _comm(net)
+    report = {"prove": row, "parties": pp.n, "l": pp.l, "digest": f"0x{digest:016x}",
+              "comm": list(comm)}
     if hold:
         keep = _ReplayEachLayout()
         t0 = time.perf_counter()
@@ -2155,6 +2340,17 @@ def _sim_prove_verify(tag: str, curve, pp, srs: dict, launches: dict, replayed: 
         missing = [k for k, v in launches[f"{tag}_prove"].items() if v and not keep.seen.get(k)]
         if missing:
             raise AssertionError(f"{tag}: no call of {missing} replayed")
+    for name in configs:
+        with ENGINE_CONFIGS[name]():
+            net.reset_comm()
+            out, report[f"prove_{name}"] = _step(f"{tag}_prove_{name}",
+                                                 lambda: dhyperplonk(n, pk, net), launches)
+        _require(f"{tag}_prove_{name}", launches, CONFIG_PROVE_KERNELS[name])
+        got = (proof_digest(curve, out), _comm(net))
+        if got != (digest, comm):
+            raise AssertionError(f"{tag} prove with {name}: digest 0x{got[0]:016x} and comm "
+                                 f"{got[1]}, not the default 0x{digest:016x} and {comm}")
+        del out
     args = (pp, srs["c"], srs["d"], proof, g, pk.challenge, pk.challenge_r2,
             eq_top_table(curve.fr, pp.n))
     with (sampled_recording() if hold else contextlib.nullcontext([])) as kept:
@@ -2187,9 +2383,10 @@ def sim_path(curve, pp, srs: dict, launches: dict, replayed: dict) -> dict:
     message changed must fail naming gate[1] in every failure.  Then the
     same prove at l = 1 (8 parties, c_opens without those rounds) on SRSs
     of the same secrets, which the complete verifier with its pairings
-    must accept."""
+    must accept.  The l = 8 prove runs again in each other engine
+    configuration (``ENGINE_CONFIGS``) to the same bundle and comm."""
     report, verdict, unpaired, corrupted = _sim_prove_verify("sim", curve, pp, srs, launches,
-                                                             replayed)
+                                                             replayed, configs=ENGINE_CONFIGS)
     n = PROTOCOL["n"]
     if (verdict["ok"], verdict["failures"]) != (False, C_OPEN_PHASE2_FAILURES):
         raise AssertionError(f"sim-mode (n={n}, l={pp.l}) bundle: {verdict['failures']}")
@@ -2253,7 +2450,8 @@ def _proves(tag: str, fn, launches: dict, replayed: dict, net=None, repeat: int 
 
 def local_paths(curve, c_plain, launches: dict, replayed: dict) -> dict:
     """(c): the local provers at n = 16 on the example's random SRS, pinned
-    and timed; then ``local_hyperplonk`` on the honest c-SRS of (a), which
+    and timed, and one prove each with ``SCZK_MXU=1``, pinned; then
+    ``local_hyperplonk`` on the honest c-SRS of (a), which
     ``verify_local_hyperplonk`` must accept."""
     n = PROTOCOL["n"]
     srs = srs_random(curve, n + 2, PROTOCOL["local_srs_seed"])
@@ -2261,6 +2459,12 @@ def local_paths(curve, c_plain, launches: dict, replayed: dict) -> dict:
     # points are this phase's new G1 shapes (local++ makes the same ones)
     report = {key: _proves(key, lambda fn=fn: fn(n, srs), launches, replayed,
                            g1=key == "local") for key, fn in LOCAL_PROVERS.items()}
+    for key, fn in LOCAL_PROVERS.items():  # the int8 engine: one prove each, pinned
+        with mxu_config():
+            out, report[f"{key}_mxu"] = _step(f"{key}_mxu", lambda fn=fn: fn(n, srs), launches)
+        _require(f"{key}_mxu", launches, CONFIG_PROVE_KERNELS["mxu"])
+        _check_pin(f"{key}_n{n}", proof_digest(curve, out))
+        del out
     del srs
     ins = local_inputs(curve.fr, n)
     proof = local_hyperplonk(n, c_plain, ins)
@@ -2274,12 +2478,25 @@ def local_paths(curve, c_plain, launches: dict, replayed: dict) -> dict:
 def variant_paths(launches: dict, replayed: dict) -> dict:
     """(d): the three variants at (16, 8) in leader mode, pinned and timed;
     their G1 calls are the flagship prove's steps at its shapes, which
-    phases 4 and 5 hold, so their field and phase calls are replayed."""
+    phases 4 and 5 hold, so their field and phase calls are replayed.  Then
+    one prove of each in each other engine configuration
+    (``ENGINE_CONFIGS``), counted on its own, against the same pins."""
     n, l = PROTOCOL["n"], PROTOCOL["l"]
     net = PartyNet(8 * l, mode="leader")
     pk = packed_proving_parameters(n, l, net)
-    return {key: _proves(key, lambda fn=fn: fn(n, pk, net), launches, replayed, net=net)
-            for key, fn in VARIANTS.items()}
+    report = {key: _proves(key, lambda fn=fn: fn(n, pk, net), launches, replayed, net=net)
+              for key, fn in VARIANTS.items()}
+    for name, config in ENGINE_CONFIGS.items():
+        for key, fn in VARIANTS.items():
+            tag, pin = f"{key}_{name}", f"{key}_n{n}_l{l}"
+            with config():
+                net.reset_comm()
+                out, report[tag] = _step(tag, lambda fn=fn: fn(n, pk, net), launches)
+            _require(tag, launches, CONFIG_PROVE_KERNELS[name])
+            _check_pin(pin, proof_digest(pk.curve, out))
+            _check_pin(f"{pin}_comm", _comm(net))
+            del out
+    return report
 
 
 def protocol_phase(launches: dict, replayed: dict) -> dict:
@@ -2309,6 +2526,11 @@ def main() -> int:
     print(card, flush=True)
     print(json.dumps({"python": sys.version.split()[0], "torch": torch.__version__,
                       "cuda": torch.version.cuda}), flush=True)
+    start = time.perf_counter()
+
+    def stamp(phase: str):  # the script's wall seconds at the end of each phase
+        print(json.dumps({"phase_done": phase, "wall_s": time.perf_counter() - start}),
+              flush=True)
 
     # 1. build
     t0 = time.perf_counter()
@@ -2322,6 +2544,8 @@ def main() -> int:
                       "int_mul_per_s": int_rate}), flush=True)
     F = get_field(FIELD)
     Fq = get_field("bls12_381_fq")
+
+    stamp("1")
 
     # 2. kernels against their plain versions
     fr_rows = check_elementwise(F, 1 << 20, int_rate)
@@ -2342,6 +2566,8 @@ def main() -> int:
     g1_rows, collision = check_g1(curve, int_rate, lat_ms)
     print(json.dumps({**chain_diag, **collision, **check_chain(curve)}), flush=True)
 
+    stamp("2")
+
     # 3. the sumcheck main path, with launch counts around one call, whose
     # kernel calls are then replayed through the plain versions
     _, net, gate = gate_identity(F)
@@ -2359,6 +2585,8 @@ def main() -> int:
                                  f"{replayed['gate_identity'].get(name, 0)} calls replayed")
     print(json.dumps({"main_path_replayed": replayed["gate_identity"]}), flush=True)
     paths = {"gate_identity_ms": _host_ms(gate, 5), "gate_comm": list(net.comm(0))}
+
+    stamp("3")
 
     # 4. the MSM paths of the prove, each counted on its own
     _reset_counts()
@@ -2407,6 +2635,8 @@ def main() -> int:
     g1_rows.update(g1_times["c_commit"])
     g1_rows["g1_bucket_serial"] = g1_times["c_open"]["g1_bucket_serial"]
 
+    stamp("4")
+
     # 5. the main path: the prove at n = 16, l = 8 in both MSM
     # configurations, and the (6, 1) prove
     prove = prove_phase(launches, replayed, int_rate, lat_ms, imad_ns)
@@ -2442,6 +2672,18 @@ def main() -> int:
     print(json.dumps({"mxu_micro": micro}), flush=True)
     print(json.dumps({"exp_fieldmul": fieldmul_path(launches)}), flush=True)
 
+    stamp("5")
+
+    # 5b. the SRS cache, the bench entry's conformance and the measurement
+    # scripts
+    t0 = time.perf_counter()
+    print(json.dumps({"srs_cache": srs_cache_phase(launches)}), flush=True)
+    print(json.dumps({"conformance": conformance_phase()}), flush=True)
+    print(json.dumps({"scripts": scripts_phase(), "phase_5b_s": time.perf_counter() - t0}),
+          flush=True)
+
+    stamp("5b")
+
     # 6. the reference's sumcheck envelope
     run = envelope(F)
     _reset_counts()
@@ -2456,6 +2698,8 @@ def main() -> int:
     paths["c_sumcheck_product_n30_l32_ms"] = _host_ms(top, 2)
     del top
 
+    stamp("6")
+
     # 7. sim mode, self-verifying
     net, opened, mono, ch_ints, h = sim_mode(F)
     proof_ints = [tuple(int(v) for v in row) for row in F.array_to_ints(opened)]
@@ -2468,11 +2712,15 @@ def main() -> int:
     print(json.dumps({"paths": paths}), flush=True)
     del net, opened, mono
 
+    stamp("7")
+
     # 8. the protocol layer: honest SRSs, the sim-mode prove verified, the
     # local provers and the three variants
     t0 = time.perf_counter()
     protocol_phase(launches, replayed)
     print(json.dumps({"protocol_phase_s": time.perf_counter() - t0}), flush=True)
+
+    stamp("8")
 
     # 9. kernel table: launches summed over the paths (gate identity, SRS
     # bases, c_commit, d_commit, c_open, each also non-dense, the prove in

@@ -47,3 +47,12 @@ def timed(fn, device: torch.device):
     out = fn()
     sync(device)
     return out, time.perf_counter() - t0
+
+
+def warm_up(fn, device: torch.device):
+    """One untimed run of ``fn`` on the card, where a first call loads the
+    kernels and makes their first launches; none on the CPU, whose plain
+    versions load nothing."""
+    if device.type == "cuda":
+        fn()
+        sync(device)

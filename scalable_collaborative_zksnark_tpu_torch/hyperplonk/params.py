@@ -10,16 +10,29 @@ per-party vector is a tensor [P, len, L] (P = N in ``sim`` mode, 1 in
 ``leader`` mode); challenges are [k, L] or [L].  The inputs are drawn
 with the JAX package's ``RandomState`` seeds, so both packages make the
 same bits.
+
+``SCZK_SRS_CACHE=<dir>`` keeps the seeded random SRS of
+``benchmark_srs`` on disk between processes (the JAX package's opt-in
+cache): the first ``packed_proving_parameters`` call for (curve, n, N, l,
+seed) writes it, later ones load it onto their device.  Its contract is
+the seeded points alone, so a loaded SRS is the built one bit for bit.
+An honest SRS or one passed as ``srs=`` is never cached.  The files are
+the port's own (``srs_torch_v1_...``); it reads no file of the JAX
+package's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import pickle
+import warnings
+from pathlib import Path
 from typing import Optional
 
 import torch
 
-from ..curves.g1 import Curve, bls12_381_g1
+from ..curves.g1 import Curve, PointJ, bls12_381_g1
 from ..device import DEFAULT
 from ..mpc.net import PartyNet
 from ..primitives.mle import fix_variable, pack_vec
@@ -149,12 +162,89 @@ def benchmark_srs(curve: Curve, n: int, pp: PackedSharingParams, seed: int = 1) 
                             max_level=max(n + 2 - s_bits, s_bits))}
 
 
+SRS_CACHE_VERSION = "srs_torch_v1"
+"""Leads every cache file's name; a change of layout changes it."""
+
+_SRS_POINT_LISTS = ("powers_of_g", "root_levels", "packed_powers")
+
+
+def srs_cache_path(curve: Curve, n: int, pp: PackedSharingParams, seed: int,
+                   cache_dir=None) -> Optional[Path]:
+    """The cache file of ``benchmark_srs(curve, n, pp, seed)`` under
+    ``cache_dir``, by default ``SCZK_SRS_CACHE``; None when neither is set."""
+    root = cache_dir or os.environ.get("SCZK_SRS_CACHE")
+    if not root:
+        return None
+    return Path(root) / f"{SRS_CACHE_VERSION}_{curve.name}_n{n}_N{pp.n}_l{pp.l}_s{seed}.pkl"
+
+
+def _srs_to_host(pc: PolynomialCommitment) -> dict:
+    """An SRS's fields without its curve, every point as numpy int32 limbs."""
+    out = {f.name: getattr(pc, f.name) for f in dataclasses.fields(pc) if f.name != "curve"}
+    for key in _SRS_POINT_LISTS:
+        if out[key] is not None:
+            out[key] = [tuple(a.cpu().numpy() for a in pt) for pt in out[key]]
+    return out
+
+
+def _srs_from_host(curve: Curve, fields: dict) -> PolynomialCommitment:
+    fields = dict(fields)
+    for key in _SRS_POINT_LISTS:
+        if fields[key] is not None:
+            fields[key] = [PointJ(*(torch.from_numpy(a).to(curve.device) for a in pt))
+                           for pt in fields[key]]
+    return PolynomialCommitment(curve=curve, **fields)
+
+
+def load_srs_cache(path: Path, curve: Curve) -> Optional[dict]:
+    """{"c": ..., "d": ...} from a cache file onto ``curve``'s device, or
+    None when the file is missing or cannot be read whole (it is then
+    rebuilt and written again)."""
+    try:
+        with open(path, "rb") as fh:
+            blob = pickle.load(fh)
+        return {k: _srs_from_host(curve, blob[k]) for k in ("c", "d")}
+    except FileNotFoundError:
+        return None
+    except (OSError, EOFError, pickle.UnpicklingError, KeyError, TypeError, ValueError) as exc:
+        warnings.warn(f"SRS cache {path} unreadable ({type(exc).__name__}: {exc}); rebuilding it")
+        return None
+
+
+def save_srs_cache(path: Path, srs: dict):
+    """Write ``srs`` as host numpy arrays: to a temporary file, then renamed
+    over ``path``, so a reader never sees half a file."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    try:
+        with open(tmp, "wb") as fh:
+            pickle.dump({k: _srs_to_host(srs[k]) for k in ("c", "d")}, fh, protocol=4)
+        os.replace(tmp, path)
+    finally:
+        tmp.unlink(missing_ok=True)
+
+
+def cached_benchmark_srs(curve: Curve, n: int, pp: PackedSharingParams, seed: int = 1,
+                         cache_dir=None) -> dict:
+    """``benchmark_srs``, through the cache directory (``cache_dir``, by
+    default ``SCZK_SRS_CACHE``) when there is one: loaded when its file
+    reads whole, else built and written."""
+    path = srs_cache_path(curve, n, pp, seed, cache_dir)
+    srs = None if path is None else load_srs_cache(path, curve)
+    if srs is None:
+        srs = benchmark_srs(curve, n, pp, seed)
+        if path is not None:
+            save_srs_cache(path, srs)
+    return srs
+
+
 def packed_proving_parameters(n: int, l: int, net: PartyNet, curve: Optional[Curve] = None,
                               seed: int = 1, srs: Optional[dict] = None,
                               device=DEFAULT) -> PackedProvingParameters:
     """All inputs (dhyperplonk.rs:64-157) for N = 8l parties, on ``device``
     (default CUDA; raises without a card).  ``srs``: an optional
-    {"c": ..., "d": ...} in place of ``benchmark_srs``."""
+    {"c": ..., "d": ...} in place of ``benchmark_srs`` (which
+    ``SCZK_SRS_CACHE`` keeps on disk, ``cached_benchmark_srs``)."""
     curve = bls12_381_g1(device) if curve is None else curve
     F = curve.fr
     pp = PackedSharingParams(F, l)
@@ -166,7 +256,7 @@ def packed_proving_parameters(n: int, l: int, net: PartyNet, curve: Optional[Cur
     pts00, pts01, pts10 = _corner_points(F)
     V = r((P, gc * 4 // l), 1)
     ssigma = r((P, gc * 4 // l), 2)
-    srs = benchmark_srs(curve, n, pp, seed) if srs is None else srs
+    srs = cached_benchmark_srs(curve, n, pp, seed) if srs is None else srs
     return PackedProvingParameters(
         n=n, pp=pp, curve=curve,
         V=V,

@@ -22,7 +22,8 @@ double-and-add and a tree sum.
 
 Differences from the JAX package, none of which changes a value:
 * ``SCZK_MSM_DENSE`` is the one ``SCZK_*`` switch: the dense core always
-  uses signed digits and the cost-model c;
+  uses signed digits and the cost-model c (``_msm_1d_dense``, the flat
+  entry of the JAX package's oracle tests, takes a fixed c);
 * no ``MIN_MSM_SIZE`` zero padding (it bounded XLA compiles);
 * the non-dense ``msm`` runs its batch as chunks of one bucket grid (the
   JAX package vmaps ``_msm_1d``; the masked steps past an instance's
@@ -254,6 +255,15 @@ def _msm_ragged_dense(curve: Curve, points: PointJ, scalars_std: torch.Tensor, s
             (ends + offs).reshape(-1), (starts + offs).reshape(-1), lens.reshape(-1)))
     acc = map_points(lambda *a: torch.cat(a).reshape(W, C, K, a[0].shape[-1]), *parts)
     return _horner_windows(curve, _weighted_bucket_totals(curve, acc), c)
+
+
+def _msm_1d_dense(curve: Curve, points: PointJ, scalars_std: torch.Tensor, c: int,
+                  affine: bool = False) -> PointJ:
+    """One MSM on the dense core at window width ``c``: points [N], scalars
+    [N, L] -> PointJ [] (the JAX package's flat entry, which its oracle
+    tests call): one segment of ``_msm_ragged_dense``."""
+    res = _msm_ragged_dense(curve, points, scalars_std, (scalars_std.shape[0],), c, affine)
+    return map_points(lambda a: a[0], res)
 
 
 def _pick_c(max_size: int) -> int:

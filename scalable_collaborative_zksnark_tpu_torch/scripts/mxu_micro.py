@@ -11,7 +11,7 @@ time per op and its element rate:
 4. the whole int8 product phase (``mxu_sumcheck.product_phase``) at 2^m,
    beside the fold-phase kernel (``cuda_sumcheck.product_phase``) on the
    same tables, with the two results compared;
-5. the dense and the bucket MSM at 2^msm_log points (``_msm_ragged_dense``
+5. the dense and the bucket MSM at 2^msm_log points (``_msm_1d_dense``
    and ``_msm_1d_buckets``, c = 8; random x and y, not on the curve: the
    group law does not check, so these time throughput only).
 
@@ -34,7 +34,7 @@ from ..device import DEFAULT, resolve, sync
 from ..fields import mxu
 from ..fields.fr import get_field
 from ..primitives import cuda_sumcheck, mxu_sumcheck
-from ..primitives.msm import _msm_1d_buckets, _msm_ragged_dense
+from ..primitives.msm import _msm_1d_buckets, _msm_1d_dense
 
 CHAIN = 64
 
@@ -108,8 +108,8 @@ def run(device=DEFAULT, m: int = 20, chain: int = CHAIN, msm_log: int = 13) -> l
     Fq, N = cv.fq, 1 << msm_log
     sc = F.decode(F.random((N,), 7))
     pts = PointJ(Fq.random((N,), 8), Fq.random((N,), 9), Fq.ones((N,)).contiguous())
-    rows.append(_timeit(f"dense msm 2^{msm_log} (c=8)", lambda: _msm_ragged_dense(
-        cv, pts, sc, (N,), 8, affine=True), dev, N, 1)[0])
+    rows.append(_timeit(f"dense msm 2^{msm_log} (c=8)", lambda: _msm_1d_dense(
+        cv, pts, sc, 8, affine=True), dev, N, 1)[0])
     rows.append(_timeit(f"bucket msm 2^{msm_log} (c=8)", lambda: _msm_1d_buckets(
         cv, pts, sc, 1, 8, affine=True), dev, N, 1)[0])
     return rows

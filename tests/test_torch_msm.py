@@ -113,12 +113,16 @@ def test_msm_ragged(curves, data, gate):
     assert [T.to_affine_ints(g) for g in got] == [J.to_affine_ints(w) for w in want]
 
 
-def test_msm_ragged_per_party_bases(curves, data):
+@pytest.mark.parametrize("config", ["dense", "nondense"])
+def test_msm_ragged_per_party_bases(curves, data, monkeypatch, config):
     """Per-party bases [P, N_i] align as prefixes of scalars [P, B, N_i]
     (a sim-mode c_open's batched q-vectors over srs_packed's levels): each
-    entry equals the JAX package's ``msm`` of its party's bases."""
+    entry equals the JAX package's ``msm`` of its party's bases, on the
+    dense core and on the non-dense cores (``SCZK_MSM_DENSE=0``)."""
     T, J = curves
     pts, scal = data
+    if config == "nondense":
+        monkeypatch.setenv("SCZK_MSM_DENSE", "0")
     P, B, sizes = 2, 3, (8, 4)
     bases = [jax.tree.map(lambda a, n=n, o=o: a[o:o + P * n].reshape(P, n, -1), pts)
              for n, o in zip(sizes, (0, 40))]
