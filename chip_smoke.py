@@ -116,7 +116,9 @@ Phases (any failure raises and exits non-zero):
    host's affine adds), and the top level's ladder on 4,096 lanes held
    against its plain version;
    (b) ``dhyperplonk`` in sim mode with all 64 parties on the card, on
-   consistent shares with those SRSs: ``verify_dhyperplonk`` with its
+   consistent shares with those SRSs, then three more synchronised
+   proves timed (median), as (b2) times its split proves:
+   ``verify_dhyperplonk`` with its
    pairings must fail exactly the three c_open pairings (at l > 1 their
    last log2(l) proofs are the reference's local MSMs over the packed
    base, dpoly_comm.rs:454-456; the JAX package's verifier reports the
@@ -124,6 +126,20 @@ Phases (any failure raises and exits non-zero):
    seconds apart), and a copy with one gate message changed must fail
    naming gate[1]; then the same at l = 1 (8 parties) on SRSs of the
    same secrets, which the complete verifier with its pairings accepts;
+   (b2) the same (16, 8) prove with its 64 parties spread over ranks
+   (``split_world``: four NCCL ranks, one a card, with four cards or more,
+   two with two or three, four gloo ranks sharing the card with one),
+   started with ``spawn`` on the kernels built in phase 1: each rank loads
+   (a)'s SRSs from a temporary file (its rows of the packed levels, cut on
+   the host), builds its rows of (b)'s consistent inputs and proves its
+   parties' share, three synchronised proves (median) after a warm-up and
+   one counted: rank 0's gathered bundle must have (b)'s digest, every
+   rank's comm (b)'s, and every rank must launch each kernel of the sim
+   prove; then ``dhyperplonk_data_parallel``, ``dpermcheck`` and
+   ``cpermcheck`` at (12, 2) in the same world, each against its
+   single-process sim digest and comm made first; one JSON line gives
+   the world, backend, cards, any collective staged through host memory,
+   each rank's prove seconds and peak memory, the digest and the comm;
    (c) ``local_hyperplonk`` and ``local_hyperplonkpp`` at n = 16 on
    ``srs_random(curve, 18, 7)``, median of three synchronised proves after a
    warm-up, digests pinned, one prove each with ``SCZK_MXU=1`` pinned, and
@@ -170,9 +186,11 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
@@ -195,6 +213,7 @@ from scalable_collaborative_zksnark_tpu_torch.hyperplonk import (cpermcheck, dhy
                                                                   verify_local_hyperplonk)
 from scalable_collaborative_zksnark_tpu_torch.hyperplonk import collaborative as collab_module
 from scalable_collaborative_zksnark_tpu_torch.hyperplonk import params as params_module
+from scalable_collaborative_zksnark_tpu_torch.hyperplonk import sharding
 from scalable_collaborative_zksnark_tpu_torch.hyperplonk.collaborative import eq_top_table
 from scalable_collaborative_zksnark_tpu_torch.hyperplonk.params import (
     consistent_proving_parameters)
@@ -297,6 +316,9 @@ PROTOCOL_PROVE_KERNELS = ("fr_mul", "fr_add", "fr_sub", "sumcheck_product_phase"
 C_OPEN_PHASE2_FAILURES = [f"c_open[{p}]: pairing check" for p in "abc"]
 LOCAL_PROVERS = {"local": local_hyperplonk, "localpp": local_hyperplonkpp}
 VARIANTS = {"dp": dhyperplonk_data_parallel, "dperm": dpermcheck, "cperm": cpermcheck}
+# the split phase: the timed proves of the (16, 8) prove, the variants' (n, l),
+# and the most seconds the ranks may take together
+SPLIT = {"repeat": 3, "n": 12, "l": 2, "timeout_s": 600}
 # the kernels a phase-8 prove must launch in each engine configuration
 # other than the default: the non-dense MSM cores and the int8 engine
 CONFIG_PROVE_KERNELS = {
@@ -2302,6 +2324,33 @@ def srs_paths(curve, pp, launches: dict) -> tuple[dict, dict]:
     return srs, report
 
 
+def _sim_prove(tag: str, curve, pp, srs: dict, launches: dict, timed: bool):
+    """``dhyperplonk`` in sim mode, all 8l parties on the card, on consistent
+    shares with the honest SRSs ``srs`` (c packed, d), a step; with
+    ``timed``, ``SPLIT["repeat"]`` more proves, warm and synchronised, as
+    phase 8(b2) times its split proves.  Returns (report, pk, g, net,
+    proof)."""
+    n = PROTOCOL["n"]
+    net = PartyNet(pp.n, mode="sim")
+    pk, g = consistent_proving_parameters(n, pp.l, net, {"c": srs["c_packed"], "d": srs["d"]},
+                                          curve=curve)
+    proof, row = _step(f"{tag}_prove", lambda: dhyperplonk(n, pk, net), launches)
+    _require(f"{tag}_prove", launches, PROTOCOL_PROVE_KERNELS)
+    report = {"prove": row, "parties": pp.n, "l": pp.l,
+              "digest": f"0x{proof_digest(curve, proof):016x}", "comm": list(_comm(net))}
+    if timed:  # the net's counters are the first prove's again after
+        runs, snap = [], net.comm_snapshot()
+        for _ in range(SPLIT["repeat"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dhyperplonk(n, pk, net)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        net.comm_restore(snap)
+        report["prove_median_s"], report["prove_runs_s"] = statistics.median(runs), runs
+    return report, pk, g, net, proof
+
+
 def _sim_prove_verify(tag: str, curve, pp, srs: dict, launches: dict, replayed: dict,
                       hold: bool = True, configs=()):
     """``dhyperplonk`` in sim mode, all 8l parties on the card, on consistent
@@ -2317,14 +2366,8 @@ def _sim_prove_verify(tag: str, curve, pp, srs: dict, launches: dict, replayed: 
     of these is replayed.  Returns (report, the verifier's verdict, the
     verifier without pairings, a gate-section check on a corrupted copy)."""
     n = PROTOCOL["n"]
-    net = PartyNet(pp.n, mode="sim")
-    pk, g = consistent_proving_parameters(n, pp.l, net, {"c": srs["c_packed"], "d": srs["d"]},
-                                          curve=curve)
-    proof, row = _step(f"{tag}_prove", lambda: dhyperplonk(n, pk, net), launches)
-    _require(f"{tag}_prove", launches, PROTOCOL_PROVE_KERNELS)
+    report, pk, g, net, proof = _sim_prove(tag, curve, pp, srs, launches, timed=hold)
     digest, comm = proof_digest(curve, proof), _comm(net)
-    report = {"prove": row, "parties": pp.n, "l": pp.l, "digest": f"0x{digest:016x}",
-              "comm": list(comm)}
     if hold:
         keep = _ReplayEachLayout()
         t0 = time.perf_counter()
@@ -2499,16 +2542,164 @@ def variant_paths(launches: dict, replayed: dict) -> dict:
     return report
 
 
+def split_world() -> tuple[int, str, str]:
+    """(ranks, backend, their device) of the split prove: four NCCL ranks,
+    one a card, with four cards or more; two with two or three; with one
+    card, four gloo ranks sharing it."""
+    cards = torch.cuda.device_count()
+    if cards >= 4:
+        return 4, "nccl", "cuda"
+    if cards >= 2:
+        return 2, "nccl", "cuda"
+    return 4, "gloo", "cuda:0"
+
+
+def _split_prove(name: str, fn, n: int, pk, net: PartyNet, repeat: int) -> tuple[dict, dict]:
+    """On one rank: ``repeat`` synchronised proves after a warm-up (each
+    started together on every rank), then one more with the counts set to
+    0 just before it and read just after and the peak memory reset; the
+    whole bundle's digest (rank 0) and the comm.  Returns (report, counts)."""
+    dev = pk.curve.device
+    runs = []
+    for i in range(repeat + 1):
+        dist.barrier()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        fn(n, pk, net)
+        torch.cuda.synchronize(dev)
+        if i:
+            runs.append(time.perf_counter() - t0)
+    net.reset_comm()
+    dist.barrier()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = fn(n, pk, net)
+    torch.cuda.synchronize(dev)
+    counted_s = time.perf_counter() - t0
+    counts = _counts()
+    row = {"median_s": statistics.median(runs) if runs else None, "runs_s": runs,
+           "counted_s": counted_s, "peak_bytes": torch.cuda.max_memory_allocated(dev),
+           "comm": list(_comm(net)), "launches": {k: v for k, v in counts.items() if v}}
+    whole = sharding.gather_bundle(out, net, name, check_leader=True)
+    if net.rank == 0:
+        row["digest"] = f"0x{proof_digest(pk.curve, whole):016x}"
+    return row, counts
+
+
+def _split_rank(group, dev, srs_path: str, small: tuple) -> dict:
+    """One rank of the split phase: the honest SRSs from ``srs_path`` (its
+    rows of the packed levels, cut on the host), its rows of phase 8(b)'s
+    consistent inputs, and the (16, 8) ``dhyperplonk`` (``_split_prove``);
+    then the three variants at ``small`` = (n, l) on the seeded inputs,
+    one counted prove each."""
+    curve = bls12_381_g1(dev)
+    n, l = PROTOCOL["n"], PROTOCOL["l"]
+    net = PartyNet(8 * l, "sim", group=group)
+    t0 = time.perf_counter()
+    srs = params_module.load_srs_cache(Path(srs_path), curve, net)
+    if srs is None:
+        raise RuntimeError(f"rank {net.rank} could not read the SRS file {srs_path}")
+    pk, _ = consistent_proving_parameters(n, l, net, srs, curve=curve)
+    torch.cuda.synchronize(dev)
+    out = {"rank": net.rank, "device": str(dev), "parties": [net.party_offset, net.local_parties],
+           "setup_s": time.perf_counter() - t0}
+    out["dhyperplonk"], out["launches"] = _split_prove("dhyperplonk", dhyperplonk, n, pk, net,
+                                                       SPLIT["repeat"])
+    del pk, srs
+    ns, ls = small
+    net = PartyNet(8 * ls, "sim", group=group)
+    pk = packed_proving_parameters(ns, ls, net, curve=curve)
+    for key, fn in VARIANTS.items():
+        out[key], _ = _split_prove(fn.__name__, fn, ns, pk, net, 0)
+    return out
+
+
+def split_phase(curve, srs: dict, sim: dict, launches: dict) -> dict:
+    """Phase 8(b2): the sim (16, 8) prove of (b) with its 64 parties spread
+    over ranks (``split_world``), each rank proving its parties' share;
+    rank 0's gathered bundle must have (b)'s digest, and every rank's comm
+    (b)'s.  Each rank must launch every kernel of the sim prove.  Then the
+    three variants at ``SPLIT``'s (n, l) in the same world, each against
+    its single-process sim run made here first."""
+    world, backend, device = split_world()
+    ns, ls = SPLIT["n"], SPLIT["l"]
+    refs, net = {}, PartyNet(8 * ls, "sim")
+    pk = packed_proving_parameters(ns, ls, net, curve=curve)
+    for key, fn in VARIANTS.items():
+        net.reset_comm()
+        refs[key] = (f"0x{proof_digest(curve, fn(ns, pk, net)):016x}", list(_comm(net)))
+    del pk
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "srs.pkl"
+        params_module.save_srs_cache(path, {"c": srs["c_packed"], "d": srs["d"]})
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = sharding.run_ranks(_split_rank, world, backend, device,
+                                   args=(str(path), (ns, ls)), timeout=SPLIT["timeout_s"])
+        wall = time.perf_counter() - t0
+    want = (sim["digest"], sim["comm"])
+    got = (ranks[0]["dhyperplonk"]["digest"], ranks[0]["dhyperplonk"]["comm"])
+    if got != want:
+        raise AssertionError(f"the split (16, 8) prove gave {got}, not phase 8(b)'s {want}")
+    for r in ranks:
+        if r["dhyperplonk"]["comm"] != sim["comm"]:
+            raise AssertionError(f"rank {r['rank']}: comm {r['dhyperplonk']['comm']}, "
+                                 f"not {sim['comm']}")
+        tag = f"split_r{r['rank']}"
+        launches[tag] = r["launches"]
+        _require(tag, launches, PROTOCOL_PROVE_KERNELS)
+        for key, (digest, comm) in refs.items():
+            if r[key]["comm"] != comm or r["rank"] == 0 and r[key]["digest"] != digest:
+                raise AssertionError(f"rank {r['rank']}: split {key} at ({ns}, {ls}) gave "
+                                     f"{r[key].get('digest')} and {r[key]['comm']}, "
+                                     f"not {digest} and {comm}")
+    return {"world_size": world, "backend": backend,
+            "cards_used": len({r["device"] for r in ranks}),
+            "prove_median_s_by_rank": [r["dhyperplonk"]["median_s"] for r in ranks],
+            "prove_runs_s_by_rank": [r["dhyperplonk"]["runs_s"] for r in ranks],
+            "peak_bytes_by_rank": [r["dhyperplonk"]["peak_bytes"] for r in ranks],
+            "setup_s_by_rank": [r["setup_s"] for r in ranks],
+            "parties_by_rank": [r["parties"] for r in ranks],
+            "digest": ranks[0]["dhyperplonk"]["digest"], "comm": ranks[0]["dhyperplonk"]["comm"],
+            "launches_by_rank": [r["dhyperplonk"]["launches"] for r in ranks],
+            "single_process_prove_s": sim["prove"]["host_s"],
+            "single_process_median_s": sim.get("prove_median_s"),
+            "single_process_peak_bytes": sim["prove"]["peak_bytes"],
+            "variants": {key: {"n": ns, "l": ls, "digest": refs[key][0], "comm": refs[key][1],
+                               "counted_s_by_rank": [r[key]["counted_s"] for r in ranks]}
+                         for key in VARIANTS},
+            "wall_s": wall}
+
+
+def split_alone() -> dict:
+    """Phase 8(b2) on its own, after a build: (a)'s SRSs and (b)'s timed sim
+    prove, its reference (without (b)'s replay and verifier), then the
+    split phase; returns its report."""
+    curve = bls12_381_g1()
+    pp = PackedSharingParams(curve.fr, PROTOCOL["l"])
+    launches = {}
+    srs, _ = srs_paths(curve, pp, launches)
+    sim = _sim_prove("sim", curve, pp, srs, launches, timed=True)[0]
+    report = split_phase(curve, srs, sim, launches)
+    print(json.dumps({"split": report}), flush=True)
+    return report
+
+
 def protocol_phase(launches: dict, replayed: dict) -> dict:
-    """Phase 8: (a) the honest SRSs, (b) the sim-mode prove verified, (c)
-    the local provers, (d) the three variants; each step's report printed
-    on a line of its own."""
+    """Phase 8: (a) the honest SRSs, (b) the sim-mode prove verified, (b2)
+    the same prove split over ranks, (c) the local provers, (d) the three
+    variants; each step's report printed on a line of its own."""
     curve = bls12_381_g1()
     pp = PackedSharingParams(curve.fr, PROTOCOL["l"])
     srs, report = srs_paths(curve, pp, launches)
     print(json.dumps({"protocol_srs": report}), flush=True)
     out = {"srs": report, "sim": sim_path(curve, pp, srs, launches, replayed)}
     print(json.dumps({"protocol_sim": out["sim"]}), flush=True)
+    out["split"] = split_phase(curve, srs, out["sim"], launches)
+    print(json.dumps({"split": out["split"]}), flush=True)
     del srs["d"], srs["c_packed"]
     out["local"] = local_paths(curve, srs["c"], launches, replayed)
     print(json.dumps({"protocol_local": out["local"]}), flush=True)

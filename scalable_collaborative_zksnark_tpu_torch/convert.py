@@ -14,19 +14,24 @@ import torch
 from .curves.g1 import PointJ, bls12_381_g1
 from .device import DEFAULT, resolve
 from .hyperplonk.local import LocalInputs
-from .hyperplonk.params import PackedProvingParameters
-from .primitives.poly_comm import PolynomialCommitment
+from .hyperplonk.params import PackedProvingParameters, map_levels, srs_from_host
+from .hyperplonk.sharding import shard_parameters
 from .pss.pss import PackedSharingParams
+
+
+def _host_limbs(arr_u32) -> np.ndarray:
+    """``uint32 [..., L]`` limb array -> a new ``int32`` array, same bits."""
+    arr = np.ascontiguousarray(arr_u32)
+    if arr.dtype != np.uint32:
+        raise TypeError(f"expected a uint32 limb array, got {arr.dtype}")
+    return arr.view(np.int32).copy()
 
 
 def from_numpy(arr_u32: np.ndarray, device=DEFAULT) -> torch.Tensor:
     """``uint32 [..., L]`` limb array -> ``int32`` tensor with the same bits,
     on ``device`` (raises if CUDA is asked for and absent)."""
     dev = resolve(device)
-    arr = np.ascontiguousarray(arr_u32)
-    if arr.dtype != np.uint32:
-        raise TypeError(f"expected a uint32 limb array, got {arr.dtype}")
-    return torch.from_numpy(arr.view(np.int32).copy()).to(dev)
+    return torch.from_numpy(_host_limbs(arr_u32)).to(dev)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -78,41 +83,44 @@ def local_inputs_from_numpy(ins, device=DEFAULT) -> LocalInputs:
                           for k, v in fields.items()})
 
 
-def _point_levels(levels, device):
-    """A list (or a dict of lists) of point batches -> the same of ``PointJ``."""
-    if levels is None:
-        return None
-    if isinstance(levels, dict):
-        return {k: _point_levels(v, device) for k, v in levels.items()}
-    return [points_from_numpy(pt, device) for pt in levels]
+def _srs_host(srs) -> dict:
+    """The JAX package's SRS (point levels as three ``uint32`` arrays each,
+    or anything ``np.asarray`` takes) -> the port's host fields of it
+    (``params.srs_to_host``'s form)."""
+    limbs = lambda levels: map_levels(  # noqa: E731
+        levels, lambda pt: tuple(_host_limbs(np.asarray(a)) for a in pt))
+    return {"powers_of_g": limbs(srs.powers_of_g), "powers_of_g2": list(srs.powers_of_g2),
+            "party_weights": srs.party_weights, "root_levels": limbs(srs.root_levels),
+            "packed_powers": limbs(srs.packed_powers), "affine": bool(srs.affine),
+            "packed_offset": 0}
 
 
 def srs_from_numpy(curve, srs):
-    """An SRS with the fields of the JAX package's ``PolynomialCommitment``
-    (point levels as three ``uint32`` arrays each, or anything
-    ``np.asarray`` takes; host G2 points and party weights as they are)
-    -> the port's ``PolynomialCommitment`` on ``curve``'s device."""
-    dev = curve.device
-    return PolynomialCommitment(
-        curve=curve, powers_of_g=_point_levels(srs.powers_of_g, dev),
-        powers_of_g2=list(srs.powers_of_g2), party_weights=srs.party_weights,
-        root_levels=_point_levels(srs.root_levels, dev),
-        packed_powers=_point_levels(srs.packed_powers, dev), affine=bool(srs.affine))
+    """The JAX package's ``PolynomialCommitment`` (host G2 points and party
+    weights as they are) -> the port's on ``curve``'s device."""
+    return srs_from_host(curve, _srs_host(srs))
 
 
-def proving_parameters_from_numpy(pk, device=DEFAULT):
+_SRS_FIELDS = ("c_commitment", "d_commitment")
+
+
+def proving_parameters_from_numpy(pk, device=DEFAULT, net=None):
     """The JAX package's ``PackedProvingParameters`` (each limb field a
     ``uint32`` array, or anything ``np.asarray`` takes) -> the port's, on
     ``device``: the same inputs for both provers, so a mismatch names its
-    step.  The curve is BLS12-381's G1."""
+    step.  The curve is BLS12-381's G1.  With a ``net`` spread over
+    processes, the inputs keep the net's rows, cut on the host before the
+    upload (``sharding.shard_parameters``)."""
     curve = bls12_381_g1(device)
-    fields = {"n": int(pk.n), "pp": PackedSharingParams(curve.fr, int(pk.pp.l)), "curve": curve,
-              "c_commitment": srs_from_numpy(curve, pk.c_commitment),
-              "d_commitment": srs_from_numpy(curve, pk.d_commitment)}
-    for f in dataclasses.fields(PackedProvingParameters):
-        if f.name not in fields:
-            fields[f.name] = from_numpy(np.asarray(getattr(pk, f.name)), device)
-    return PackedProvingParameters(**fields)
+    host = {f.name: getattr(pk, f.name) for f in dataclasses.fields(PackedProvingParameters)
+            if f.name not in ("n", "pp", "curve")}
+    host = {k: _srs_host(v) if k in _SRS_FIELDS else np.asarray(v) for k, v in host.items()}
+    if net is not None:
+        host = shard_parameters(host, net)
+    fields = {k: srs_from_host(curve, v) if k in _SRS_FIELDS else from_numpy(v, device)
+              for k, v in host.items()}
+    return PackedProvingParameters(n=int(pk.n), pp=PackedSharingParams(curve.fr, int(pk.pp.l)),
+                                   curve=curve, **fields)
 
 
 def pss_matrices(pp: PackedSharingParams) -> dict[str, np.ndarray]:

@@ -230,15 +230,19 @@ class Field:
     # ------------------------------------------------------------------
     # Random elements (host-side deterministic)
     # ------------------------------------------------------------------
-    def random(self, shape, seed: int) -> torch.Tensor:
+    def random(self, shape, seed: int, rows: slice | None = None) -> torch.Tensor:
         """Deterministic pseudo-uniform elements in Montgomery form.
 
         Draws exactly as the JAX package's ``Field.random``: the same
         ``RandomState`` call, the top limb reduced below p's top limb, then
-        encoded on the device -- so both packages make the same bits."""
+        encoded on the device -- so both packages make the same bits.
+        ``rows``: keep only these rows of the draw's first axis, cut on the
+        host before the upload."""
         shape = tuple(shape)
         rng = np.random.RandomState(seed & 0x7FFFFFFF)
         limbs = rng.randint(0, 1 << LIMB_BITS, size=shape + (self.L,)).astype(np.uint32)
+        if rows is not None:
+            limbs = np.ascontiguousarray(limbs[rows])
         top = int(self.spec.p_limbs[self.L - 1])
         limbs[..., self.L - 1] %= max(top, 1)
         return self.encode(self._tensor(limbs))

@@ -25,7 +25,9 @@ reference feeds to power-of-two commits, dpoly_comm.rs:414,257) are
 zero-padded to exactly S.
 
 Share vectors are [P, len, L] (party axis first); plain ``_p`` vectors
-are the 1/N slices.  Leader-only work (the tree top) runs once.  The JAX
+are the 1/N slices.  Leader-only work (the tree top) runs once, on every
+process when the parties are spread over a process group (its inputs are
+gathered to all of them).  The JAX
 package's documented deviation in ``_dsum_ch`` is kept.  Its TPU compile
 workarounds (phased executables, their cache) are not ported: they return
 the same bundle as ``dhyperplonk``.
@@ -35,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from ..curves.g1 import PointJ
 from ..fields import mxu
 from ..fields.fr import Field
 from ..fields.mxu import Red
@@ -72,7 +75,8 @@ def _exchange_s(F: Field, net: PartyNet, local_s: torch.Tensor) -> torch.Tensor:
     net.all_to_all_rotating_root("fr", count_per_root=B, vec=True)
     if net.mode == "leader":  # fake network: own block for every received one
         return local_s.repeat(1, net.n, 1)
-    return local_s.reshape(1, net.n * B, F.L).expand(net.n, net.n * B, F.L)
+    s = net.gather_data_only(local_s)  # [N, B, L], every party's block
+    return s.reshape(1, net.n * B, F.L).expand(net.local_parties, net.n * B, F.L)
 
 
 def _num_den_h(F: Field, num_base, sid_like, den_base, ssig_like, alpha, beta):
@@ -99,10 +103,20 @@ def _dsum_ch(net: PartyNet, ch: torch.Tensor) -> torch.Tensor:
     return torch.cat([ch[s:], ch[:s]])
 
 
+# The wire section's leaves that hold a party axis first ([P, ...], a row a
+# party), by list: the first ones _wire_part_a makes, its c_sumcheck_product
+# of s and V (proof 0), its d_commits of s and of the eight wire polynomials
+# (commits 0-8) and its two c_opens of V (opens 0-1).  Every other leaf of
+# the section is the leader's value, the same on every party.  A change to
+# what _wire_part_a makes first changes these counts (``party_marks``).
+_WIRE_PARTY_LEAVES = {"proofs": 1, "commits": 9, "opens": 2}
+
+
 def _wire_part_a(n: int, pk: PackedProvingParameters, net: PartyNet, local_s_p, s_shares, c: int):
     """Wire identity 2.b-2.e.1 (dhyperplonk.rs:296-413): s commit and opens,
     num/den/h, the accumulation tree, the 8-poly commit group and the
-    direct zerocheck.  Returns the lists and the tree slices for b and c."""
+    direct zerocheck.  Returns the lists and the tree slices for b and c;
+    the per-party leaves come first (``_WIRE_PARTY_LEAVES``)."""
     F = pk.pp.field
     pp = pk.pp
     proofs, commits, opens = [], [], []
@@ -363,7 +377,9 @@ def _commit_step(pk: PackedProvingParameters, net: PartyNet, c: int):
 
 
 def _final_opens(pk: PackedProvingParameters, net: PartyNet, coms, c: int):
-    """The final 3 c_open + 3 d_open (rs:517-554), one batched round each."""
+    """The final 3 c_open + 3 d_open (rs:517-554), one batched round each.
+    Per party are the three (c_commit, c_open) pairs and the d_commits;
+    the d_opens are the leader's (``_gate_coms_marks``)."""
     cval, cpis = c_open(pk.c_commitment, pk.pp, net,
                         _stackp([pk.a_evals, pk.b_evals, pk.c_evals]), pk.challenge, c=c)
     dval, dpis = pk.d_commitment.d_open(net, _stackp([pk.I_p, pk.S1_p, pk.S2_p]),
@@ -396,10 +412,9 @@ def dhyperplonk(n: int, pk: PackedProvingParameters, net: PartyNet, seed: int = 
     layered zerocheck layer by layer (the same bundle)."""
     F = pk.pp.field
     gc = 1 << n
-    P = net.local_parties
     # protocol-internal placeholders, "jump from sky" (rs:187-190)
-    local_s_p = F.random((P, gc * 4 // net.n), seed * 31 + 1)
-    local_s = F.random((P, gc * 4 // net.n // pk.pp.l), seed * 31 + 2)
+    local_s_p = net.random_rows(F, (gc * 4 // net.n,), seed * 31 + 1)
+    local_s = net.random_rows(F, (gc * 4 // net.n // pk.pp.l,), seed * 31 + 2)
     eq_top = eq_top_table(F, net.n, "dhyperplonk", seed)
 
     net.sync()
@@ -425,9 +440,8 @@ def dhyperplonk_data_parallel(n: int, pk: PackedProvingParameters, net: PartyNet
     (rs:601-604)."""
     F = pk.pp.field
     gc = 1 << n
-    P = net.local_parties
-    local_s_p = F.random((P, gc * 4 // net.n), seed * 37 + 1)
-    s_shares = F.random((P, gc * 4 // pk.pp.l), seed * 37 + 2)
+    local_s_p = net.random_rows(F, (gc * 4 // net.n,), seed * 37 + 1)
+    s_shares = net.random_rows(F, (gc * 4 // pk.pp.l,), seed * 37 + 2)
     eq_top = eq_top_table(F, net.n, "dhyperplonk_data_parallel", seed)
 
     net.sync()
@@ -449,9 +463,8 @@ def dpermcheck(n: int, pk: PackedProvingParameters, net: PartyNet, seed: int = 3
     wire-identity section, with the all-to-all exchange."""
     F = pk.pp.field
     gc = 1 << n
-    P = net.local_parties
-    local_s = F.random((P, gc * 4 // net.n // pk.pp.l), seed * 41 + 1)
-    local_s_p = F.random((P, gc * 4 // net.n), seed * 41 + 2)
+    local_s = net.random_rows(F, (gc * 4 // net.n // pk.pp.l,), seed * 41 + 1)
+    local_s_p = net.random_rows(F, (gc * 4 // net.n,), seed * 41 + 2)
     eq_top = eq_top_table(F, net.n, "dpermcheck", seed)
 
     net.sync()
@@ -500,3 +513,37 @@ def cpermcheck(n: int, pk: PackedProvingParameters, net: PartyNet, c: int = 8):
                                      _stackp([v1x, vx0, vx1]), pk.challenge_r1)
             proofs += _unstack(sc3, 3, axis=1)
     return proofs, commits, opens
+
+
+def _marked(x, flag: bool):
+    """``x``'s structure with each leaf as ``flag``."""
+    if torch.is_tensor(x) or isinstance(x, PointJ):
+        return flag
+    return type(x)(_marked(a, flag) for a in x)
+
+
+def _wire_marks(wire):
+    """The wire section's marks (``_WIRE_PARTY_LEAVES``)."""
+    return tuple([_marked(x, i < _WIRE_PARTY_LEAVES[key]) for i, x in enumerate(part)]
+                 for key, part in zip(("proofs", "commits", "opens"), wire, strict=True))
+
+
+def _gate_coms_marks(gate_coms):
+    """``_final_opens``' marks: its c-side pairs per party; of its d-side
+    pairs, the d_commit per party and the d_open the leader's."""
+    return [_marked(x, True) if b < 3 else (True, _marked(x[1], False))
+            for b, x in enumerate(gate_coms)]
+
+
+def party_marks(prover: str, bundle):
+    """The structure of ``prover``'s ``bundle`` with each leaf True where it
+    holds a party axis first and False where it is the leader's value, the
+    same on every party (``sharding.gather_bundle`` reads it)."""
+    if prover == "cpermcheck":  # every proof, commit and open is on shares
+        return _marked(bundle, True)
+    if prover == "dpermcheck":
+        return _wire_marks(bundle)
+    if prover in ("dhyperplonk", "dhyperplonk_data_parallel"):
+        (gate_proofs, gate_coms), wire = bundle
+        return (_marked(gate_proofs, True), _gate_coms_marks(gate_coms)), _wire_marks(wire)
+    raise ValueError(f"unknown prover {prover!r}")

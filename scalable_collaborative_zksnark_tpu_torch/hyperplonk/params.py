@@ -7,16 +7,20 @@ random placeholder of the right size ("Jump from sky", dhyperplonk.rs:
 not a real circuit.  Fields with a ``_p`` suffix are plain values sliced
 1/N per party; the rest are PSS shares sized 1/l per party.  Every
 per-party vector is a tensor [P, len, L] (P = N in ``sim`` mode, 1 in
-``leader`` mode); challenges are [k, L] or [L].  The inputs are drawn
-with the JAX package's ``RandomState`` seeds, so both packages make the
-same bits.
+``leader`` mode, N / W on each of W processes of a net spread over a
+process group, which draws the rows of its parties, cut on the host:
+``PartyNet.random_rows``); challenges are [k, L] or [L].  The inputs are
+drawn with the JAX package's ``RandomState`` seeds, so both packages make
+the same bits.
 
 ``SCZK_SRS_CACHE=<dir>`` keeps the seeded random SRS of
 ``benchmark_srs`` on disk between processes (the JAX package's opt-in
 cache): the first ``packed_proving_parameters`` call for (curve, n, N, l,
 seed) writes it, later ones load it onto their device.  Its contract is
 the seeded points alone, so a loaded SRS is the built one bit for bit.
-An honest SRS or one passed as ``srs=`` is never cached.  The files are
+An honest SRS or one passed as ``srs=`` is never cached, but
+``save_srs_cache``/``load_srs_cache`` move any SRS pair through a file
+(the split prove hands the honest one to its ranks so).  The files are
 the port's own (``srs_torch_v1_...``); it reads no file of the JAX
 package's.
 """
@@ -30,13 +34,14 @@ import warnings
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..curves.g1 import Curve, PointJ, bls12_381_g1
 from ..device import DEFAULT
 from ..mpc.net import PartyNet
 from ..primitives.mle import fix_variable, pack_vec
-from ..primitives.poly_comm import PolynomialCommitment, srs_random
+from ..primitives.poly_comm import PolynomialCommitment, party_packed_levels, srs_random
 from ..pss.pss import PackedSharingParams
 
 
@@ -93,6 +98,16 @@ class PackedProvingParameters:
     reduce_target: torch.Tensor
 
 
+PARTY_FIELDS = ("V", "a_evals", "b_evals", "c_evals", "I", "S1", "S2", "I_p", "S1_p", "S2_p",
+                "ssigma", "ssigma_p", "ssigma_a", "ssigma_b", "ssigma_c", "sid", "sid_p", "eq",
+                "eq_top_p", "eq_r1", "eq_r1_p", "eq_r2", "eq_r2_p", "mask", "unmask0", "unmask1",
+                "unmask2", "reduce_target")
+"""The fields of ``PackedProvingParameters`` with a party axis first, by
+name: a process holding parties [o, o + P) keeps rows [o, o + P) of each.
+(The challenges' leading axes are not party axes, though at some sizes
+they are as long.)"""
+
+
 def _corner_points(F):
     """The (x0, x1) points (0, 0), (0, 1), (1, 0) that pick a, b and c out of V."""
     zero, one = F.const(0), F.const(1)
@@ -122,10 +137,10 @@ def consistent_proving_parameters(n: int, l: int, net: PartyNet, srs: dict,
     g["a"] = fix_variable(F, g["V"], pts00)
     g["b"] = fix_variable(F, g["V"], pts01)
     g["c"] = fix_variable(F, g["V"], pts10)
-    sh = lambda x: pack_vec(pp, x)  # noqa: E731
-    sl = lambda x: x.reshape(N, x.shape[-2] // N, F.L)  # noqa: E731
-    P = net.local_parties
+    sh = lambda x: _own_rows(net, pack_vec(pp, x))  # noqa: E731
+    sl = lambda x: _own_rows(net, x.reshape(N, x.shape[-2] // N, F.L))  # noqa: E731
     rnd = lambda shape, k: F.random(shape, seed * 1009 + k)  # noqa: E731
+    rows = lambda tail, k: net.random_rows(F, tail, seed * 1009 + k)  # noqa: E731
     pk = PackedProvingParameters(
         n=n, pp=pp, curve=curve,
         V=sh(g["V"]), a_evals=sh(g["a"]), b_evals=sh(g["b"]), c_evals=sh(g["c"]),
@@ -136,17 +151,24 @@ def consistent_proving_parameters(n: int, l: int, net: PartyNet, srs: dict,
         ssigma_b=sh(fix_variable(F, g["ssigma"], pts01)),
         ssigma_c=sh(fix_variable(F, g["ssigma"], pts10)),
         sid=sh(g["sid"]), sid_p=sl(g["sid"]),
-        eq=sh(g["eq"]), eq_top_p=rnd((P, N * 2), 13),
+        eq=sh(g["eq"]), eq_top_p=rows((N * 2,), 13),
         eq_r1=sh(g["eq_r1"]), eq_r1_p=sl(g["eq_r1"]),
         eq_r2=sh(g["eq_r2"]), eq_r2_p=sl(g["eq_r2"]),
         challenge=rnd((n,), 18), challenge_r1=rnd((n + 2,), 19), challenge_r2=rnd((n + 2,), 20),
         alpha=rnd((), 21), beta=rnd((), 22), gamma=rnd((), 23),
         d_commitment=srs["d"], c_commitment=srs["c"],
-        mask=rnd((P, gc * 4 // l), 24), unmask0=rnd((P, gc * 4 // l), 25),
-        unmask1=rnd((P, gc * 4 // l), 26), unmask2=rnd((P, gc * 4 // l), 27),
-        reduce_target=rnd((P, max(gc // l // l, 1)), 28),
+        mask=rows((gc * 4 // l,), 24), unmask0=rows((gc * 4 // l,), 25),
+        unmask1=rows((gc * 4 // l,), 26), unmask2=rows((gc * 4 // l,), 27),
+        reduce_target=rows((max(gc // l // l, 1),), 28),
     )
     return pk, g
+
+
+def _own_rows(net: PartyNet, table: torch.Tensor) -> torch.Tensor:
+    """The net's rows of a per-party table [N, ...]; a copy when the
+    parties are spread over processes, so the whole table is freed."""
+    rows = net.party_rows(table)
+    return rows if net.group is None else rows.clone()
 
 
 def benchmark_srs(curve: Curve, n: int, pp: PackedSharingParams, seed: int = 1) -> dict:
@@ -178,32 +200,53 @@ def srs_cache_path(curve: Curve, n: int, pp: PackedSharingParams, seed: int,
     return Path(root) / f"{SRS_CACHE_VERSION}_{curve.name}_n{n}_N{pp.n}_l{pp.l}_s{seed}.pkl"
 
 
-def _srs_to_host(pc: PolynomialCommitment) -> dict:
-    """An SRS's fields without its curve, every point as numpy int32 limbs."""
+def map_levels(levels, fn):
+    """``fn`` on each point of a list of levels, or of a dict of such lists
+    (an honest SRS's root levels, keyed by variable count)."""
+    if levels is None:
+        return None
+    if isinstance(levels, dict):
+        return {k: [fn(pt) for pt in v] for k, v in levels.items()}
+    return [fn(pt) for pt in levels]
+
+
+def srs_to_host(pc: PolynomialCommitment) -> dict:
+    """An SRS's host fields: its fields without its curve, every point as
+    numpy int32 limbs."""
     out = {f.name: getattr(pc, f.name) for f in dataclasses.fields(pc) if f.name != "curve"}
     for key in _SRS_POINT_LISTS:
-        if out[key] is not None:
-            out[key] = [tuple(a.cpu().numpy() for a in pt) for pt in out[key]]
+        out[key] = map_levels(out[key], lambda pt: tuple(a.cpu().numpy() for a in pt))
     return out
 
 
-def _srs_from_host(curve: Curve, fields: dict) -> PolynomialCommitment:
+def shard_srs(fields: dict, net: Optional[PartyNet]) -> dict:
+    """An SRS's host fields with its per-party packed levels cut to the
+    net's rows before their upload (``party_packed_levels``), and
+    ``packed_offset`` the net's first party; as they are without a group."""
+    if net is None or net.group is None or fields["packed_powers"] is None:
+        return fields
+    return dict(fields, packed_powers=party_packed_levels(fields["packed_powers"], net),
+                packed_offset=net.party_offset)
+
+
+def srs_from_host(curve: Curve, fields: dict) -> PolynomialCommitment:
+    """The inverse of ``srs_to_host``: the SRS on ``curve``'s device."""
     fields = dict(fields)
     for key in _SRS_POINT_LISTS:
-        if fields[key] is not None:
-            fields[key] = [PointJ(*(torch.from_numpy(a).to(curve.device) for a in pt))
-                           for pt in fields[key]]
+        fields[key] = map_levels(fields[key], lambda pt: PointJ(*(
+            torch.from_numpy(np.ascontiguousarray(a)).to(curve.device) for a in pt)))
     return PolynomialCommitment(curve=curve, **fields)
 
 
-def load_srs_cache(path: Path, curve: Curve) -> Optional[dict]:
+def load_srs_cache(path: Path, curve: Curve, net: Optional[PartyNet] = None) -> Optional[dict]:
     """{"c": ..., "d": ...} from a cache file onto ``curve``'s device, or
     None when the file is missing or cannot be read whole (it is then
-    rebuilt and written again)."""
+    rebuilt and written again).  With a ``net`` spread over processes, a
+    per-party packed level keeps the net's rows (``shard_srs``)."""
     try:
         with open(path, "rb") as fh:
             blob = pickle.load(fh)
-        return {k: _srs_from_host(curve, blob[k]) for k in ("c", "d")}
+        return {k: srs_from_host(curve, shard_srs(blob[k], net)) for k in ("c", "d")}
     except FileNotFoundError:
         return None
     except (OSError, EOFError, pickle.UnpicklingError, KeyError, TypeError, ValueError) as exc:
@@ -218,7 +261,7 @@ def save_srs_cache(path: Path, srs: dict):
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
     try:
         with open(tmp, "wb") as fh:
-            pickle.dump({k: _srs_to_host(srs[k]) for k in ("c", "d")}, fh, protocol=4)
+            pickle.dump({k: srs_to_host(srs[k]) for k in ("c", "d")}, fh, protocol=4)
         os.replace(tmp, path)
     finally:
         tmp.unlink(missing_ok=True)
@@ -250,12 +293,12 @@ def packed_proving_parameters(n: int, l: int, net: PartyNet, curve: Optional[Cur
     pp = PackedSharingParams(F, l)
     if net.n != pp.n:
         raise ValueError(f"a net of {net.n} parties for l = {l} (N = {pp.n})")
-    P = net.local_parties
     gc = 1 << n
     r = lambda shape, k: F.random(shape, seed * 1009 + k)  # noqa: E731
+    rows = lambda tail, k: net.random_rows(F, tail, seed * 1009 + k)  # noqa: E731
     pts00, pts01, pts10 = _corner_points(F)
-    V = r((P, gc * 4 // l), 1)
-    ssigma = r((P, gc * 4 // l), 2)
+    V = rows((gc * 4 // l,), 1)
+    ssigma = rows((gc * 4 // l,), 2)
     srs = cached_benchmark_srs(curve, n, pp, seed) if srs is None else srs
     return PackedProvingParameters(
         n=n, pp=pp, curve=curve,
@@ -263,21 +306,21 @@ def packed_proving_parameters(n: int, l: int, net: PartyNet, curve: Optional[Cur
         a_evals=fix_variable(F, V, pts00),
         b_evals=fix_variable(F, V, pts01),
         c_evals=fix_variable(F, V, pts10),
-        I=r((P, gc // l), 3), S1=r((P, gc // l), 4), S2=r((P, gc // l), 5),
-        I_p=r((P, gc // pp.n), 6), S1_p=r((P, gc // pp.n), 7), S2_p=r((P, gc // pp.n), 8),
+        I=rows((gc // l,), 3), S1=rows((gc // l,), 4), S2=rows((gc // l,), 5),
+        I_p=rows((gc // pp.n,), 6), S1_p=rows((gc // pp.n,), 7), S2_p=rows((gc // pp.n,), 8),
         ssigma=ssigma,
-        ssigma_p=r((P, gc * 4 // pp.n), 9),
+        ssigma_p=rows((gc * 4 // pp.n,), 9),
         ssigma_a=fix_variable(F, ssigma, pts00),
         ssigma_b=fix_variable(F, ssigma, pts01),
         ssigma_c=fix_variable(F, ssigma, pts10),
-        sid=r((P, gc * 4 // l), 10), sid_p=r((P, gc * 4 // pp.n), 11),
-        eq=r((P, gc // l), 12), eq_top_p=r((P, pp.n * 2), 13),
-        eq_r1=r((P, gc * 4 // l), 14), eq_r1_p=r((P, gc * 4 // pp.n), 15),
-        eq_r2=r((P, gc * 4 // l), 16), eq_r2_p=r((P, gc * 4 // pp.n), 17),
+        sid=rows((gc * 4 // l,), 10), sid_p=rows((gc * 4 // pp.n,), 11),
+        eq=rows((gc // l,), 12), eq_top_p=rows((pp.n * 2,), 13),
+        eq_r1=rows((gc * 4 // l,), 14), eq_r1_p=rows((gc * 4 // pp.n,), 15),
+        eq_r2=rows((gc * 4 // l,), 16), eq_r2_p=rows((gc * 4 // pp.n,), 17),
         challenge=r((n,), 18), challenge_r1=r((n + 2,), 19), challenge_r2=r((n + 2,), 20),
         alpha=r((), 21), beta=r((), 22), gamma=r((), 23),
         d_commitment=srs["d"], c_commitment=srs["c"],
-        mask=r((P, gc * 4 // l), 24), unmask0=r((P, gc * 4 // l), 25),
-        unmask1=r((P, gc * 4 // l), 26), unmask2=r((P, gc * 4 // l), 27),
-        reduce_target=r((P, max(gc // l // l, 1)), 28),
+        mask=rows((gc * 4 // l,), 24), unmask0=rows((gc * 4 // l,), 25),
+        unmask1=rows((gc * 4 // l,), 26), unmask2=rows((gc * 4 // l,), 27),
+        reduce_target=rows((max(gc // l // l, 1),), 28),
     )

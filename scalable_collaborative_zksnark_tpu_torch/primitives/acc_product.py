@@ -17,7 +17,9 @@ dist-primitive/src/dacc_product.rs):
 
 A tree level is one field product of the even and odd halves of the level
 below; the rotating-root all-to-all is an axis transpose of the share
-tensor, and ``_merge`` (dacc_product.rs:416-428) a reshape per level.
+tensor (``PartyNet.transpose_parties``: one all-to-all when the parties
+are spread over processes), and ``_merge`` (dacc_product.rs:416-428) a
+reshape per level.
 """
 
 from __future__ import annotations
@@ -151,8 +153,8 @@ def c_acc_product_and_share(pp: PackedSharingParams, net: PartyNet, shares: torc
         g = blocks[0, 0][:, None, :].expand(B, N, F.L)
         masked_x = pp.unpack2(g).reshape(1, B * pp.l, F.L)
     else:
-        byroot = blocks.movedim(1, 0)  # [root, src, B, L]
-        masked_x = pp.unpack2(byroot.movedim(1, -2)).reshape(N, B * pp.l, F.L)
+        byroot = net.transpose_parties(blocks, 1)  # [root, src, B, L]
+        masked_x = pp.unpack2(byroot.movedim(1, -2)).reshape(P, B * pp.l, F.L)
 
     subtree, leader_tree = c_acc_product(pp, net, masked_x)
     M = masked_x.shape[-2]
@@ -170,7 +172,7 @@ def c_acc_product_and_share(pp: PackedSharingParams, net: PartyNet, shares: torc
     if net.mode == "leader":  # own shares stand in for the received ones
         received = (p0[:1], p1[:1], p2[:1])
     else:
-        received = (p0.movedim(1, 0), p1.movedim(1, 0), p2.movedim(1, 0))
+        received = tuple(net.transpose_parties(x, 1) for x in (p0, p1, p2))
     outs = [_merge(r, pp.l) for r in received]
 
     # the leader shares the leader tree (rs:213-263)

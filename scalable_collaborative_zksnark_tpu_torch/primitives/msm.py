@@ -467,8 +467,8 @@ def _dmsm_prescale(pp: PackedSharingParams, net: PartyNet,
     qw0, w_mont, _ = _dmsm_scale_consts(pp)
     if net.mode == "leader":
         return F.mul(scalars_std, F._tensor(qw0))
-    wb = F._tensor(w_mont).reshape((pp.n,) + (1,) * (scalars_std.ndim - 2) + (F.L,))
-    return F.mul(scalars_std, wb)
+    w = net.party_rows(F._tensor(w_mont))  # party p's w_p
+    return F.mul(scalars_std, w.reshape(w.shape[:1] + (1,) * (scalars_std.ndim - 2) + (F.L,)))
 
 
 def d_msm(curve: Curve, pp: PackedSharingParams, net: PartyNet, bases: PointJ,
@@ -486,9 +486,10 @@ def d_msm(curve: Curve, pp: PackedSharingParams, net: PartyNet, bases: PointJ,
     if net.mode == "leader":  # counting only: one gather + one scatter round
         net._count_scatter(size)
         return local
-    t = curve.sum(map_points(net.gather_data_only, local), axis=0)  # [B] = w . x
-    q = curve.fr._tensor(_dmsm_scale_consts(pp)[2])
-    tb = map_points(lambda a: a[None].expand((net.n,) + a.shape), t)
-    out = curve.scalar_mul(tb, q[:, None, :])  # [N, B] = q_j (w . x)
+    t = curve.sum(net.gather_data_only(local), axis=0)  # [B] = w . x
+    # the root scatters q_j (w . x) to party j: each process scales its rows
+    q = net.party_rows(curve.fr._tensor(_dmsm_scale_consts(pp)[2]))
+    tb = map_points(lambda a: a[None].expand(q.shape[:1] + a.shape), t)
+    out = curve.scalar_mul(tb, q[:, None, :])  # [P, B]
     net._count_scatter(size)
-    return map_points(net.scatter_data_only, out)
+    return out

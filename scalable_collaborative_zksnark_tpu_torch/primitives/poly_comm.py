@@ -75,6 +75,9 @@ class PolynomialCommitment:
     packed_powers: Optional[List[PointJ]] = None
     # every stored level normalized (z in {0, 1}): MSMs skip their inversion
     affine: bool = False
+    # the party of row 0 of the per-party packed levels (a process's rows
+    # start at its first party once they were cut on the host: shard_srs)
+    packed_offset: int = 0
 
     def normalized(self) -> "PolynomialCommitment":
         """One batch normalization of every stored G1 level."""
@@ -144,11 +147,11 @@ class PolynomialCommitment:
     def _scale_by_weights(self, net: PartyNet, pts: PointJ, m_total: int) -> PointJ:
         """Party p's point(s) times w_p, the prefix-tensor factor of an
         m_total-variable polynomial; ``pts`` [P, ...]."""
-        w = self._weights_for(m_total)
+        w = self._weights_for(m_total)[net.party_slice]
         P = net.local_parties
-        if all(int(w[p]) == 1 for p in range(P)):
+        if all(int(wp) == 1 for wp in w):
             return pts  # random benchmark SRS: every weight is 1
-        scal = np.asarray([int(w[p]) for p in range(P)], dtype=object).reshape(
+        scal = np.asarray([int(wp) for wp in w], dtype=object).reshape(
             (P,) + (1,) * (pts.x.ndim - 2))
         return self.curve.scalar_mul_int(pts, scal)
 
@@ -437,12 +440,13 @@ def _d_msm_ragged(curve: Curve, pp: PackedSharingParams, net: PartyNet, bases_li
             net._count_scatter(net.payload_bytes("g1", rb, vec=True))
         return local
     t = curve.sum(net.gather_data_only(local), axis=0)  # [..., B] = w . x
-    q = curve.fr._tensor(_dmsm_scale_consts(pp)[2])
-    tb = map_points(lambda a: a[None].expand((net.n,) + a.shape), t)
-    out = curve.scalar_mul(tb, q.reshape((net.n,) + (1,) * (tb.x.ndim - 2) + q.shape[-1:]))
+    # the root scatters q_j (w . x) to party j: each process scales its rows
+    q = net.party_rows(curve.fr._tensor(_dmsm_scale_consts(pp)[2]))
+    tb = map_points(lambda a: a[None].expand(q.shape[:1] + a.shape), t)
+    out = curve.scalar_mul(tb, q.reshape(q.shape[:1] + (1,) * (tb.x.ndim - 2) + q.shape[-1:]))
     for rb in round_batches:
         net._count_scatter(net.payload_bytes("g1", rb, vec=True))
-    return net.scatter_data_only(out)
+    return out
 
 
 def _tiny_msm_rounds(curve: Curve, bases_list, scals_list) -> List[PointJ]:
@@ -464,14 +468,31 @@ def _tiny_msm_rounds(curve: Curve, bases_list, scals_list) -> List[PointJ]:
             for o, n in zip(offs, sizes)]
 
 
+def party_packed_levels(levels, net: PartyNet) -> list:
+    """Packed SRS levels with the per-party ones ([N, M] points: three
+    arrays or tensors [N, M, 24]) cut to the net's rows; flat levels
+    ([M], the same for every party) as they are."""
+    out = []
+    for pt in levels:
+        if pt[0].ndim == 3:
+            if pt[0].shape[0] != net.n:
+                raise ValueError(f"a packed level of {pt[0].shape[0]} parties for a net of {net.n}")
+            rows = [a[net.party_slice] for a in pt]
+            pt = PointJ(*rows) if isinstance(pt, PointJ) else tuple(rows)
+        out.append(pt)
+    return out
+
+
 def _packed_base(srs: PolynomialCommitment, pp: PackedSharingParams, net: PartyNet,
                  entries: int) -> PointJ:
     """The packed SRS level of a share vector of ``entries``: per-party
-    levels ([N, M], srs_packed) slice to the one party in leader mode;
-    flat ones ([M], srs_random) broadcast downstream."""
+    levels ([N, M], srs_packed, or the rows cut on the host, which start at
+    party ``packed_offset``) give the net's parties' rows; flat
+    ones ([M], srs_random) broadcast downstream."""
     b = srs.packed_powers[(entries * pp.l).bit_length() - 1]
-    if b.x.ndim == 3 and net.mode == "leader":
-        b = map_points(lambda a: a[:1], b)
+    if b.x.ndim == 3:
+        lo = net.party_offset - srs.packed_offset
+        b = map_points(lambda a: a[lo:lo + net.local_parties], b)
     return b
 
 

@@ -73,9 +73,9 @@ def pss2ss(pp: PackedSharingParams, net: PartyNet, share: torch.Tensor,
     else:
         g = net.gather_data_only(share)
     v = pp.unpack(g.movedim(0, -2))  # [..., l, L]
-    u = _pack_single_u(pp)  # [n, L]
+    u = net.party_rows(_pack_single_u(pp))  # [P, L]: the root scatters row j to party j
     bshape = v.shape[:-2]
-    out = F.mul(u.reshape((pp.n,) + (1,) * (len(bshape) + 1) + (F.L,)), v[None])  # [n, ..., l, L]
+    out = F.mul(u.reshape(u.shape[:1] + (1,) * (len(bshape) + 1) + (F.L,)), v[None])  # [P, .., l, L]
     if count:
-        return net.scatter_from_root(out, "fr", count=B * pp.l, vec=True)
-    return net.scatter_data_only(out)
+        net._count_scatter(net.payload_bytes("fr", B * pp.l, vec=True))
+    return out

@@ -2,8 +2,8 @@
 kernels (also the team kernels at the prove's shapes), the dense MSM, the
 strided Fr products, the int8 engine and the fold-phase kernel on the
 card, against the plain versions; the honest SRS built on the card against
-the CPU build, and the port's sim-mode bundle proved there against the
-verifier.  Every test here needs a CUDA card and
+the CPU build, the port's sim-mode bundle proved there against the
+verifier, and the dry run of the parties spread over two ranks.  Every test here needs a CUDA card and
 skips without one; the file imports nothing of JAX, so it also runs where
 JAX is not installed (``tests/conftest.py`` imports it, hence
 ``--noconftest``):
@@ -275,3 +275,31 @@ def test_srs_on_card_matches_cpu(cuda):
     assert len(built["cuda"]) == len(built["cpu"])
     for a, b in zip(built["cuda"], built["cpu"]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_sharding_dryrun_on_cards(cuda):
+    """``sharding.dryrun`` with 2 ranks: NCCL, one a card, where two cards
+    are visible, else two gloo ranks sharing the card.  Each prover's
+    gathered bundle and every rank's comm equal the single-process sim
+    run's at the dry run's sizes."""
+    from scalable_collaborative_zksnark_tpu_torch.hyperplonk import sharding
+    from scalable_collaborative_zksnark_tpu_torch.hyperplonk.collaborative import (
+        cpermcheck, dhyperplonk, dhyperplonk_data_parallel, dpermcheck)
+    from scalable_collaborative_zksnark_tpu_torch.hyperplonk.params import (
+        packed_proving_parameters)
+    from scalable_collaborative_zksnark_tpu_torch.mpc.net import PartyNet
+    from scalable_collaborative_zksnark_tpu_torch.utils.digest import proof_digest
+
+    two = torch.cuda.device_count() >= 2
+    reports = sharding.dryrun(2, "nccl" if two else "gloo", "cuda" if two else "cuda:0",
+                              timeout=600)
+    n, l = sharding.dryrun_sizes(2)
+    net = PartyNet(8 * l, "sim")
+    pk = packed_proving_parameters(n, l, net, device=cuda)
+    for fn in (dhyperplonk, dhyperplonk_data_parallel, dpermcheck, cpermcheck):
+        net.reset_comm()
+        digest = f"0x{proof_digest(pk.curve, fn(n, pk, net)):016x}"
+        for rep in reports:
+            assert rep[fn.__name__]["digest"] == digest, fn.__name__
+            assert rep[fn.__name__]["comm"] == list(net.comm(0)), fn.__name__

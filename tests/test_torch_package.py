@@ -26,8 +26,10 @@ from scalable_collaborative_zksnark_tpu_torch.mpc.net import PartyNet
 from scalable_collaborative_zksnark_tpu_torch.primitives import cuda_sumcheck
 from scalable_collaborative_zksnark_tpu_torch.primitives import mxu_sumcheck
 from scalable_collaborative_zksnark_tpu_torch.primitives import sumcheck as sumcheck_module
+from scalable_collaborative_zksnark_tpu_torch.hyperplonk import sharding
 from scalable_collaborative_zksnark_tpu_torch.scripts import (chain_bench, exp_fieldmul,
-                                                               microbench, mxu_micro)
+                                                               microbench, mxu_micro,
+                                                               profile_phases, run_multihost)
 from scalable_collaborative_zksnark_tpu_torch.utils import timer
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -93,6 +95,27 @@ def test_entry_points_default_to_cuda(no_cuda):
     assert get_field("bls12_381_fr", device="cpu").device.type == "cpu"
     assert bls12_381_g1("cpu").device.type == "cpu"
     assert convert.from_numpy(np.zeros((2, 16), np.uint32), "cpu").device.type == "cpu"
+
+
+def test_split_entry_points_default_to_cuda(no_cuda):
+    """The split prove's entry points ask for the card unless told
+    otherwise, and raise without one; NCCL without a card raises."""
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_multihost.main(["--n", "4", "--l", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        profile_phases.main(["--n", "4", "--l", "1"])
+    for backend in ("gloo", "nccl"):
+        with pytest.raises(RuntimeError, match="cuda|CUDA"):
+            sharding.init_party_group(backend, 2, 0, "file:///nonexistent")
+
+
+def test_run_multihost_needs_an_init_method(capsys):
+    """A process of a world of several names its rendezvous: no fixed
+    port is assumed."""
+    with pytest.raises(SystemExit) as exc:
+        run_multihost.main(["--world-size", "2", "--rank", "1", "--backend", "gloo"])
+    assert exc.value.code == 2
+    assert "--init-method" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("argv", [
