@@ -2291,12 +2291,17 @@ def _timed_verify(fn) -> dict:
     """``fn()`` (a verifier call), synchronised: its result, its host
     seconds, and those of them in the host pairing checks."""
     timer.clear()
+    timer.enable(True, show=False)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ok, fails = fn()
-    torch.cuda.synchronize()
+    try:
+        ok, fails = fn()
+        torch.cuda.synchronize()
+    finally:
+        timer.enable(False)
     total = time.perf_counter() - t0
     pairing = _pairing_s()
+    timer.clear()
     return {"ok": ok, "failures": fails, "verify_s": total, "pairing_s": pairing,
             "device_side_s": total - pairing}
 

@@ -111,12 +111,13 @@ def run(n: int, l: int, device=DEFAULT, repeat: int = 3, trace_dir=None):
         prof.export_chrome_trace(trace)
 
     timer.clear()
-    timer.set_sync(lambda: sync(dev))
+    timer.set_sync(lambda: sync(dev))  # a timed window: the recorder is on
     try:
         out = dhyperplonk(n, pk, net)
     finally:
         timer.set_sync(None)
     split = {label: dt for label, dt in timer.records() if label in SPANS}
+    timer.clear()
     digest = proof_digest(pk.curve, out)
     tag = "cuda" if dev.type == "cuda" else "cpu"
     report = {

@@ -41,6 +41,7 @@ import torch
 from .. import cuda_build
 from ..fields import cuda_fr
 from ..fields.config import FieldSpec
+from ..utils import timer
 
 SENTINEL = 0xFFFFFFFF  # key of the accumulate's padding entries (msm.py)
 _OPS = {"add": 0, "add_mixed": 1, "double": 2}
@@ -86,6 +87,7 @@ def _is_zero(a: torch.Tensor) -> torch.Tensor:
 
 def infinity(spec: FieldSpec, shape, device) -> tuple:
     """(0, 1, 0) in Montgomery form, ``shape`` points (contiguous)."""
+    timer.count("sync.upload.g1_one")
     one = torch.from_numpy(spec.r_limbs.astype(np.int32)).to(device)
     zero = torch.zeros(tuple(shape) + (spec.num_limbs,), dtype=torch.int32, device=device)
     return zero, one.expand_as(zero).contiguous(), zero.clone()
@@ -517,6 +519,7 @@ def _launch_accumulate(spec, keys, pid, neg, bases, T, steps):
                                     g1_consts(spec).ctypes.data, _stream(keys))
     accumulate.launches += 1
     cuda_build.check(err, "g1 accumulate")
+    timer.count("sync.accumulate")
     return out, int(repaired.item())
 
 

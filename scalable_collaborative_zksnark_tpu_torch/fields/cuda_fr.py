@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from .. import cuda_build
+from ..utils import timer
 from .config import LIMB_BITS, LIMB_MASK, FieldSpec, int_to_limbs
 
 _OPS = {"mul": 0, "add": 1, "sub": 2}
@@ -54,6 +55,7 @@ def _limbs_np(value: int, L: int) -> np.ndarray:
 
 
 def limbs_const(value: int, L: int, device) -> torch.Tensor:
+    timer.count("sync.upload.limbs_const")
     return torch.from_numpy(_limbs_np(value, L)).to(device)
 
 
@@ -70,6 +72,7 @@ def normalize(cols: torch.Tensor):
     top = torch.zeros(cols.shape[:-1], dtype=torch.int64, device=cols.device)
     while True:
         hi = x >> LIMB_BITS
+        timer.count("sync.normalize")
         if not bool(hi.any()):
             return x.movedim(0, -1), top
         x &= LIMB_MASK

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT, resolve
+from ..utils import timer
 from . import cuda_fr
 from .config import FIELDS, LIMB_BITS, FieldSpec, int_to_limbs, limbs_to_int
 
@@ -40,6 +41,7 @@ def reduce_cols(spec: FieldSpec, cols: torch.Tensor, mul, add) -> torch.Tensor:
     limbs, carry = cuda_fr.normalize(cols.to(torch.int64))
     carry_el = torch.zeros_like(limbs)
     carry_el[..., 0] = carry
+    timer.count("sync.upload.r2")
     r2 = torch.from_numpy(spec.r2_limbs.astype(np.int32)).to(cols.device)
     carry_contrib = mul(spec, carry_el.to(torch.int32), r2)
     # value(limbs) < 2^(16L), which can exceed 2p: ladder down with p << s
@@ -111,6 +113,7 @@ class Field:
         return limbs_to_int(np.asarray(limbs)) * self.spec.rinv % self.p
 
     def _tensor(self, arr_u32: np.ndarray) -> torch.Tensor:
+        timer.count("sync.upload.field")
         return torch.from_numpy(np.ascontiguousarray(arr_u32, dtype=np.uint32).view(np.int32)).to(
             self.device
         )

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as nnf
 
+from ..utils import timer
 from .config import LIMB_BITS, LIMB_MASK, FieldSpec, int_to_limbs
 
 # int8-matmul contraction cap: |sum (a-128)(b-128)| <= K * 2^14 < 2^29,
@@ -163,6 +164,7 @@ def _sub_bias(spec: FieldSpec, W: int, coeff: int) -> tuple:
 
 @functools.lru_cache(maxsize=None)
 def _const(values: tuple, device: torch.device) -> torch.Tensor:
+    timer.count("sync.upload.mxu")
     return torch.tensor(values, dtype=torch.int64, device=device)
 
 
@@ -268,6 +270,7 @@ def _red_rows_at(spec: FieldSpec, W: int, n: int, rinv_power: int, device: torch
     of a width-W value, on ``device``."""
     pos = _chunk_positions(W, n)
     rows = mxu_spec(spec).red_rows(int(pos.max()) + 1, rinv_power)[pos]
+    timer.count("sync.upload.mxu", 2)
     return (torch.from_numpy(np.ascontiguousarray(rows)).to(device),
             torch.from_numpy(rows.sum(0)).to(device))
 
@@ -291,6 +294,7 @@ def fold_matrix(spec: FieldSpec, F, r_mont: torch.Tensor, src_bound: int, src_W:
     mx = mxu_spec(spec)
     n = max(((src_bound - 1).bit_length() + 7) // 8, 1)
     kmax = src_W + n  # positions k + t reach src_W - 1 + n - 1
+    timer.count("sync.upload.mxu")
     pows = torch.from_numpy(mx.pow8_mont(kmax).copy()).to(r_mont.device)
     rows = F.mul(r_mont, pows).to(torch.int64)  # [kmax, L]
     st = torch.stack([rows & 0xFF, rows >> 8], dim=-1)
@@ -305,6 +309,7 @@ def mul_shared(spec: FieldSpec, x: Red, m_r: torch.Tensor) -> Red:
     ch, n = _chunk(x)
     pos = _chunk_positions(x.W, n)
     assert int(pos.max()) + 1 <= m_r.shape[0], (pos.max(), m_r.shape)
+    timer.count("sync.upload.mxu")
     rows = m_r[torch.from_numpy(pos).to(m_r.device)]  # [K, W]
     K = ch.shape[-1]
     bound = K * 255 * 255 + 1

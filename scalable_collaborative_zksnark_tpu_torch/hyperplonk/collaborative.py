@@ -46,6 +46,7 @@ from ..primitives import mxu_sumcheck
 from ..primitives.acc_product import c_acc_product_and_share, d_acc_product
 from ..primitives.poly_comm import c_commit, c_open, c_open_many
 from ..primitives.sumcheck import c_sumcheck_product, d_sumcheck_product, sumcheck_product
+from ..utils.timer import span, spanned
 from ..utils.timer import trace as timed
 from .params import PackedProvingParameters
 
@@ -68,6 +69,7 @@ def _pick(pt, b: int):
     return type(pt)(*(a[b] for a in pt))
 
 
+@spanned("pss")
 def _exchange_s(F: Field, net: PartyNet, local_s: torch.Tensor) -> torch.Tensor:
     """All-to-all broadcast of each party's witness-share block
     (dhyperplonk.rs:270-294): every party ends with s = concat_i local_s_i."""
@@ -133,8 +135,7 @@ def _wire_part_a(n: int, pk: PackedProvingParameters, net: PartyNet, local_s_p, 
         num, den, h_p = _num_den_h(F, local_s_p, pk.sid_p, pk.eq_r1_p, pk.ssigma_p, pk.alpha,
                                    pk.beta)
     subtree, leader_tree = d_acc_product(F, net, h_p)
-    with timed("Local: get three v"):
-        v1x, vx0, vx1 = _subtree_views(subtree)
+    v1x, vx0, vx1 = _subtree_views(subtree)
 
     # the 8 wire polynomials share one shape: one d_commit, one d_open round
     grp8 = _stackp([pk.ssigma_p, pk.sid_p, h_p, num, den, v1x, vx0, vx1])
@@ -165,6 +166,7 @@ def _product_round(F: Field, f: torch.Tensor, g: torch.Tensor, ch):
     return msg, F.add(lof, F.mul(ch, F.sub(hif, lof))), F.add(log_, F.mul(ch, F.sub(hig, log_)))
 
 
+@spanned("sumcheck")
 def _wire_b_sumchecks(pk: PackedProvingParameters, net: PartyNet, v1x, vx0, vx1, eq_full,
                       ch_full):
     """All layered-zerocheck sumchecks (dhyperplonk.rs:415-478) merged:
@@ -358,10 +360,8 @@ def _gate_identity(pk: PackedProvingParameters, net: PartyNet):
     """The six gate-identity sumchecks (dhyperplonk.rs:222-260) as one
     batched c_sumcheck_product."""
     F = pk.pp.field
-    with timed("Local: Sum a and b"):
-        sum_ab = F.add(pk.a_evals, pk.b_evals)
-    with timed("Local: c-I"):
-        sum_ci = F.add(F.neg(pk.c_evals), pk.I)
+    sum_ab = F.add(pk.a_evals, pk.b_evals)
+    sum_ci = F.add(F.neg(pk.c_evals), pk.I)
     fs = _stackp([pk.eq, pk.S1, pk.eq, pk.a_evals, pk.S2, pk.eq])
     gs = _stackp([pk.S1, sum_ab, pk.S2, pk.b_evals, pk.a_evals, sum_ci])
     batch = c_sumcheck_product(pk.pp, net, fs, gs, pk.challenge)  # [P, 6, R, 3, L]
@@ -403,6 +403,7 @@ def eq_top_table(F: Field, n_parties: int, prover: str = "dhyperplonk",
     return F.random((n_parties,), (default if seed is None else seed) * stride + 3)
 
 
+@spanned(job=True)
 def dhyperplonk(n: int, pk: PackedProvingParameters, net: PartyNet, seed: int = 2, c: int = 8,
                 per_layer: bool = False):
     """The collaborative HyperPlonk prover (dhyperplonk.rs:159-571).
@@ -413,9 +414,10 @@ def dhyperplonk(n: int, pk: PackedProvingParameters, net: PartyNet, seed: int = 
     F = pk.pp.field
     gc = 1 << n
     # protocol-internal placeholders, "jump from sky" (rs:187-190)
-    local_s_p = net.random_rows(F, (gc * 4 // net.n,), seed * 31 + 1)
-    local_s = net.random_rows(F, (gc * 4 // net.n // pk.pp.l,), seed * 31 + 2)
-    eq_top = eq_top_table(F, net.n, "dhyperplonk", seed)
+    with span("placeholders"):
+        local_s_p = net.random_rows(F, (gc * 4 // net.n,), seed * 31 + 1)
+        local_s = net.random_rows(F, (gc * 4 // net.n // pk.pp.l,), seed * 31 + 2)
+        eq_top = eq_top_table(F, net.n, "dhyperplonk", seed)
 
     net.sync()
     with timed("Distributed HyperPlonk"):
@@ -433,6 +435,7 @@ def dhyperplonk(n: int, pk: PackedProvingParameters, net: PartyNet, seed: int = 
     return (gate_proofs, gate_coms), wire
 
 
+@spanned(job=True)
 def dhyperplonk_data_parallel(n: int, pk: PackedProvingParameters, net: PartyNet, seed: int = 2,
                               c: int = 8):
     """The data-parallel-circuit variant (dhyperplonk.rs:573-960): as
@@ -440,9 +443,10 @@ def dhyperplonk_data_parallel(n: int, pk: PackedProvingParameters, net: PartyNet
     (rs:601-604)."""
     F = pk.pp.field
     gc = 1 << n
-    local_s_p = net.random_rows(F, (gc * 4 // net.n,), seed * 37 + 1)
-    s_shares = net.random_rows(F, (gc * 4 // pk.pp.l,), seed * 37 + 2)
-    eq_top = eq_top_table(F, net.n, "dhyperplonk_data_parallel", seed)
+    with span("placeholders"):
+        local_s_p = net.random_rows(F, (gc * 4 // net.n,), seed * 37 + 1)
+        s_shares = net.random_rows(F, (gc * 4 // pk.pp.l,), seed * 37 + 2)
+        eq_top = eq_top_table(F, net.n, "dhyperplonk_data_parallel", seed)
 
     net.sync()
     with timed("Distributed HyperPlonk (data-parallel)"):
@@ -458,14 +462,16 @@ def dhyperplonk_data_parallel(n: int, pk: PackedProvingParameters, net: PartyNet
     return (gate_proofs, gate_coms), wire
 
 
+@spanned(job=True)
 def dpermcheck(n: int, pk: PackedProvingParameters, net: PartyNet, seed: int = 3, c: int = 8):
     """The improved permcheck on its own (dhyperplonk.rs:962-1247): the
     wire-identity section, with the all-to-all exchange."""
     F = pk.pp.field
     gc = 1 << n
-    local_s = net.random_rows(F, (gc * 4 // net.n // pk.pp.l,), seed * 41 + 1)
-    local_s_p = net.random_rows(F, (gc * 4 // net.n,), seed * 41 + 2)
-    eq_top = eq_top_table(F, net.n, "dpermcheck", seed)
+    with span("placeholders"):
+        local_s = net.random_rows(F, (gc * 4 // net.n // pk.pp.l,), seed * 41 + 1)
+        local_s_p = net.random_rows(F, (gc * 4 // net.n,), seed * 41 + 2)
+        eq_top = eq_top_table(F, net.n, "dpermcheck", seed)
 
     net.sync()
     with timed("Distributed Permcheck"):
@@ -481,6 +487,7 @@ def _pad_rows(F: Field, x: torch.Tensor, S: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros(x.shape[:-2] + (k, F.L))], dim=-2)
 
 
+@spanned(job=True)
 def cpermcheck(n: int, pk: PackedProvingParameters, net: PartyNet, c: int = 8):
     """The baseline collaborative permcheck (dhyperplonk.rs:1249-1385, paper
     section 4.3): everything on PSS shares, by c_acc_product_and_share."""

@@ -28,6 +28,7 @@ from ..primitives.acc_product import acc_product
 from ..primitives.mle import fix_variable
 from ..primitives.poly_comm import PolynomialCommitment
 from ..primitives.sumcheck import sumcheck_product
+from ..utils.timer import spanned
 from ..utils.timer import trace as timed
 
 
@@ -143,6 +144,7 @@ def _gate_opens(srs: PolynomialCommitment, ins: LocalInputs, coms, c: int):
     return list(zip(coms, _opens(srs, _gate_polys(ins), ins.challenge, c)))
 
 
+@spanned(job=True)
 def local_hyperplonk(n: int, srs: PolynomialCommitment, ins: LocalInputs = None, seed: int = 0,
                      c: int = 8):
     """The monolithic baseline prover (hyperplonk.rs:15-160).
@@ -166,6 +168,7 @@ def local_hyperplonk(n: int, srs: PolynomialCommitment, ins: LocalInputs = None,
     return (gate_proofs, gate_coms), wire
 
 
+@spanned(job=True)
 def local_hyperplonkpp(n: int, srs: PolynomialCommitment, ins: LocalInputs = None,
                        seed: int = 0, c: int = 8):
     """The HyperPlonk++ baseline (hyperplonk.rs:162-316): the witness

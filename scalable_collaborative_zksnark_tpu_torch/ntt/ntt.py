@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..fields.fr import Field
+from ..utils import timer
 
 
 @dataclass(frozen=True)
@@ -96,6 +97,7 @@ def _transform(field: Field, x: torch.Tensor, size: int, offset: int, inverse: b
     twiddles, pre_scale, post_scale = _stage_tables(field, size, offset, inverse)
     if pre_scale is not None:
         x = field.mul(x, pre_scale)
+    timer.count("sync.upload.ntt_perm")
     perm = torch.from_numpy(_bit_reverse_perm(size)).to(x.device)
     x = x.index_select(-2, perm)
     batch = x.shape[:-2]

@@ -29,6 +29,7 @@ import torch
 from ..fields.fr import Field
 from ..mpc.net import PartyNet
 from ..pss.pss import PackedSharingParams
+from ..utils.timer import spanned
 from .degree_reduce import degree_reduce_many
 
 
@@ -62,6 +63,7 @@ def acc_product(F: Field, x: torch.Tensor):
     return result[..., 0::2, :], result[..., 1::2, :], result[..., M:, :]
 
 
+@spanned("acc_product")
 def d_acc_product(F: Field, net: PartyNet, parts: torch.Tensor):
     """parts [P, M_loc, L] -> (subtree [P, 2*M_loc, L], leader_tree [2N, L]).
 
@@ -124,6 +126,7 @@ def _merge(r: torch.Tensor, l: int) -> torch.Tensor:
     return torch.cat(out, dim=-2)
 
 
+@spanned("acc_product")
 def c_acc_product_and_share(pp: PackedSharingParams, net: PartyNet, shares: torch.Tensor,
                             masks: torch.Tensor, unmask0: torch.Tensor,
                             unmask1: torch.Tensor, unmask2: torch.Tensor,

@@ -55,6 +55,7 @@ from ..curves.g1 import Curve, PointJ, map_points
 from ..fields.config import LIMB_BITS, int_to_limbs
 from ..mpc.net import PartyNet
 from ..pss.pss import PackedSharingParams
+from ..utils import timer
 
 NAIVE_MAX = 256
 """Up to this many points an MSM is one batched double-and-add and a tree sum."""
@@ -233,8 +234,10 @@ def _msm_ragged_dense(curve: Curve, points: PointJ, scalars_std: torch.Tensor, s
     W = -(-scalars_std.shape[-1] * LIMB_BITS // c)
     aff = points if affine else curve.normalize(points)
     sc = scalars_std.to(torch.int64)
-    seg_key = torch.repeat_interleave(torch.arange(C, device=dev) * K,
-                                      torch.tensor(sizes, device=dev))
+    timer.count("sync.upload.msm_sizes")
+    repeats = torch.tensor(sizes, device=dev)
+    timer.count("sync.msm_repeat", 2)  # it reads ``repeats`` on the host twice
+    seg_key = torch.repeat_interleave(torch.arange(C, device=dev) * K, repeats)
     ks = torch.arange(C * K, device=dev)
     wc = max(min(W, MAX_DENSE_ENTRIES // max(N, 1)), 1)
     carry = torch.zeros(N, dtype=torch.int64, device=dev)
@@ -305,8 +308,10 @@ def _msm_ragged_core(curve: Curve, points: PointJ, scalars_std: torch.Tensor,
     W = -(-scalars_std.shape[-1] * LIMB_BITS // c)
     aff = points if affine else curve.normalize(points)
     sc = scalars_std.to(torch.int64)
-    chunk_key = torch.repeat_interleave(torch.arange(C, device=dev) * K,
-                                        torch.tensor(chunk_sizes, device=dev))
+    timer.count("sync.upload.msm_sizes")
+    repeats = torch.tensor(chunk_sizes, device=dev)
+    timer.count("sync.msm_repeat", 2)
+    chunk_key = torch.repeat_interleave(torch.arange(C, device=dev) * K, repeats)
     digits = torch.stack([_digit(sc, c, w) for w in range(W)])  # [W, N]
     sorted_k, sorted_i = torch.sort(chunk_key[None] + digits, dim=1, stable=True)
     ks = torch.arange(C * K, device=dev)
@@ -315,6 +320,7 @@ def _msm_ragged_core(curve: Curve, points: PointJ, scalars_std: torch.Tensor,
     lens = torch.searchsorted(sorted_k, queries, right=True) - starts
     lens = torch.where(ks % K == 0, 0, lens)  # digit-0 buckets stay idle
     acc = curve.infinity((W, C * K))
+    timer.count("sync.msm_lens")
     for t in range(int(lens.max())):
         pid = torch.gather(sorted_i, 1, (starts + t).clamp(max=N - 1))  # [W, C*K]
         acc = curve.add_mixed_masked(acc, map_points(lambda a: a[pid], aff), lens > t)
@@ -347,6 +353,7 @@ def _segment_sums(curve: Curve, res: PointJ, seg_of_chunk: tuple) -> PointJ:
         segs = [s for s, ch in enumerate(chunks) if len(ch) > j]
         summed = curve.add(map_points(lambda a: a[segs], out),
                            map_points(lambda a: a[[chunks[s][j] for s in segs]], res))
+        timer.count("sync.upload.msm_sizes")
         out = map_points(lambda o, v: o.index_copy(0, torch.tensor(segs, device=o.device), v),
                          out, summed)
     return out
@@ -359,6 +366,7 @@ def _align(x: torch.Tensor, bshape: tuple) -> torch.Tensor:
         bshape + x.shape[-2:])
 
 
+@timer.spanned("msm")
 def msm(curve: Curve, points: PointJ, scalars_std: torch.Tensor, c: int = 8,
         affine: bool = False) -> PointJ:
     """Batched MSM: points [..., N], scalars [..., N, L] (standard form);
@@ -390,6 +398,7 @@ def msm_naive(curve: Curve, points: PointJ, scalars_std: torch.Tensor) -> PointJ
     return curve.sum(curve.scalar_mul(points, scalars_std), axis=-1)
 
 
+@timer.spanned("msm")
 def msm_ragged(curve: Curve, bases_list, scalars_list, c: int | None = None,
                affine: bool = False, chunk: int | None = RAGGED_CHUNK):
     """MSMs of different sizes in one bucket pass.
@@ -471,6 +480,7 @@ def _dmsm_prescale(pp: PackedSharingParams, net: PartyNet,
     return F.mul(scalars_std, w.reshape(w.shape[:1] + (1,) * (scalars_std.ndim - 2) + (F.L,)))
 
 
+@timer.spanned("msm")
 def d_msm(curve: Curve, pp: PackedSharingParams, net: PartyNet, bases: PointJ,
           scalars_std: torch.Tensor, c: int = 8) -> PointJ:
     """Batched distributed MSM on PSS shares.

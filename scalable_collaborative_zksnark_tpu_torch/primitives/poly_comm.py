@@ -35,6 +35,7 @@ from ..curves import host_curve as hc
 from ..curves.g1 import Curve, PointJ, map_points
 from ..mpc.net import VEC_PREFIX, PartyNet
 from ..pss.pss import PackedSharingParams
+from ..utils.timer import spanned
 from .msm import _dmsm_prescale, _dmsm_scale_consts, msm, msm_ragged
 from .unpack import pss2ss
 
@@ -95,6 +96,7 @@ class PolynomialCommitment:
             packed_powers=norm_lv(self.packed_powers), affine=True)
 
     # ------------------------------------------------------------------
+    @spanned("pcs")
     def commit(self, peval: torch.Tensor, c: int = 8) -> PointJ:
         """evals [..., 2^k, L] (Montgomery) -> commitment point(s) [...]."""
         k = peval.shape[-2].bit_length() - 1
@@ -107,6 +109,7 @@ class PolynomialCommitment:
         qs, cur = _fold_rounds(self.curve.fr, peval, point, start, n)
         return qs, cur[..., 0, :]
 
+    @spanned("pcs")
     def open(self, peval: torch.Tensor, point: torch.Tensor, c: int = 8):
         """-> (value [..., L], proofs: list of n PointJ [...]); round i
         commits q_i at level n - 1 - i, all rounds in one ``msm_ragged``."""
@@ -155,6 +158,7 @@ class PolynomialCommitment:
             (P,) + (1,) * (pts.x.ndim - 2))
         return self.curve.scalar_mul_int(pts, scal)
 
+    @spanned("pcs")
     def d_commit(self, net: PartyNet, peval: torch.Tensor, c: int = 8) -> PointJ:
         """peval [P, ..., M_loc, L] -> the commitment(s) [P, ...]; extra
         batch dims share the one leader round."""
@@ -177,6 +181,7 @@ class PolynomialCommitment:
     def _open_bytes(self, net: PartyNet, B: int, m_points: int) -> int:
         return B * (net.payload_bytes("fr", 1) + VEC_PREFIX + net.payload_bytes("g1", m_points))
 
+    @spanned("pcs")
     def d_open_many(self, net: PartyNet, items, c: int = 8):
         """k distributed opens in two ragged MSM passes (all local q-vectors,
         then all root q-vectors); bytes and outputs as k ``d_open`` calls.
@@ -214,6 +219,7 @@ class PolynomialCommitment:
             k += len(bs)
         return final
 
+    @spanned("pcs")
     def d_open(self, net: PartyNet, peval: torch.Tensor, point: torch.Tensor, c: int = 8):
         """peval [P, ..., 2^m, L], point [n, L] -> (value [..., L], proofs).
 
@@ -496,6 +502,7 @@ def _packed_base(srs: PolynomialCommitment, pp: PackedSharingParams, net: PartyN
     return b
 
 
+@spanned("pcs")
 def c_commit(srs: PolynomialCommitment, pp: PackedSharingParams, net: PartyNet,
              pevals: list, c: int = 8) -> PointJ:
     """Batched collaborative commit (dpoly_comm.rs:244-267): share tables
@@ -522,6 +529,7 @@ def _phase2(srs, pp, net, ss: torch.Tensor, challenges):
     return cur2, (_tiny_msm_rounds(srs.curve, b2, q2) if q2 else [])
 
 
+@spanned("pcs")
 def c_open(srs: PolynomialCommitment, pp: PackedSharingParams, net: PartyNet,
            peval: torch.Tensor, point: torch.Tensor, c: int = 8):
     """Collaborative open (dpoly_comm.rs:401-464): n_loc local share
@@ -539,6 +547,7 @@ def c_open(srs: PolynomialCommitment, pp: PackedSharingParams, net: PartyNet,
     return cur2[..., 0, :], proofs
 
 
+@spanned("pcs")
 def c_open_many(srs: PolynomialCommitment, pp: PackedSharingParams, net: PartyNet,
                 items, c: int = 8):
     """k collaborative opens of same-size tables on one compute path: one

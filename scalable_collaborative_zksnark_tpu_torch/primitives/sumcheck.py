@@ -36,6 +36,7 @@ import torch
 from ..fields.fr import Field
 from ..mpc.net import PartyNet
 from ..pss.pss import PackedSharingParams
+from ..utils.timer import spanned
 from . import cuda_sumcheck, mxu_sumcheck
 from .unpack import pss2ss
 
@@ -94,6 +95,7 @@ def _rounds_product(F: Field, cur_f, cur_g, challenges, start, count):
 # ---------------------------------------------------------------------------
 # Local (monolithic) sumcheck -- the reference baseline + verifier oracle
 # ---------------------------------------------------------------------------
+@spanned("sumcheck")
 def sumcheck(F: Field, evals: torch.Tensor, challenges: torch.Tensor) -> torch.Tensor:
     """[..., 2^n, L] -> messages [..., n+1, 2, L] (last = (0, final))."""
     n = evals.shape[-2].bit_length() - 1
@@ -102,6 +104,7 @@ def sumcheck(F: Field, evals: torch.Tensor, challenges: torch.Tensor) -> torch.T
     return torch.stack(msgs, dim=-3)
 
 
+@spanned("sumcheck")
 def sumcheck_product(F: Field, evals_f: torch.Tensor, evals_g: torch.Tensor,
                      challenges: torch.Tensor) -> torch.Tensor:
     """[..., 2^n, L] x2 -> messages [..., n+1, 3, L] (last = (0, f*g, 0))."""
@@ -115,6 +118,7 @@ def sumcheck_product(F: Field, evals_f: torch.Tensor, evals_g: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Collaborative (PSS-share) sumcheck
 # ---------------------------------------------------------------------------
+@spanned("sumcheck")
 def c_sumcheck(pp: PackedSharingParams, net: PartyNet, shares: torch.Tensor,
                challenges: torch.Tensor) -> torch.Tensor:
     """shares [P, 2^n_loc, L] -> per-party messages [P, n_loc+log2(l)+1, 2, L]."""
@@ -128,6 +132,7 @@ def c_sumcheck(pp: PackedSharingParams, net: PartyNet, shares: torch.Tensor,
     return torch.stack(msgs + msgs2 + [final], dim=-3)
 
 
+@spanned("sumcheck")
 def c_sumcheck_product(pp: PackedSharingParams, net: PartyNet, shares_f: torch.Tensor,
                        shares_g: torch.Tensor, challenges: torch.Tensor) -> torch.Tensor:
     """[P, 2^n_loc, L] x2 -> per-party messages [P, n_loc+log2(l)+1, 3, L].
@@ -149,6 +154,7 @@ def c_sumcheck_product(pp: PackedSharingParams, net: PartyNet, shares_f: torch.T
 # ---------------------------------------------------------------------------
 # Distributed (plain-sliced) sumcheck
 # ---------------------------------------------------------------------------
+@spanned("sumcheck")
 def d_sumcheck(F: Field, net: PartyNet, parts: torch.Tensor,
                challenges: torch.Tensor) -> torch.Tensor:
     """parts [P, ..., 2^n_loc, L] -> leader proof [..., n_loc+log2(N), 2, L].
@@ -172,6 +178,7 @@ def d_sumcheck(F: Field, net: PartyNet, parts: torch.Tensor,
     return torch.cat([summed, lead], dim=-3)
 
 
+@spanned("sumcheck")
 def d_sumcheck_product(F: Field, net: PartyNet, parts_f: torch.Tensor, parts_g: torch.Tensor,
                        challenges: torch.Tensor) -> torch.Tensor:
     """[P, ..., 2^n_loc, L] x2 -> leader proof [..., n_loc+log2(N), 3, L].

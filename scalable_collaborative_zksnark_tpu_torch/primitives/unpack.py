@@ -21,6 +21,7 @@ import torch
 
 from ..mpc.net import PartyNet
 from ..pss.pss import PackedSharingParams
+from ..utils.timer import spanned
 
 
 @functools.lru_cache(maxsize=None)
@@ -30,6 +31,7 @@ def _pack_single_u(pp: PackedSharingParams) -> torch.Tensor:
     return F.array_from_ints([int(v) % F.p for v in pp.pack_single_reconstructible_vector()])
 
 
+@spanned("pss")
 def d_unpack_0(pp: PackedSharingParams, net: PartyNet, share: torch.Tensor) -> torch.Tensor:
     """share [P, L] -> secret[0] broadcast to all parties [P, L]."""
     g = net.gather_to_root(share, "fr")  # [N, L]
@@ -38,17 +40,20 @@ def d_unpack_0(pp: PackedSharingParams, net: PartyNet, share: torch.Tensor) -> t
     return net.scatter_from_root(out, "fr")
 
 
+@spanned("pss")
 def d_unpack(pp: PackedSharingParams, net: PartyNet, share: torch.Tensor, receiver: int = 0):
     """share [P, L] -> secrets [l, L] (visible at `receiver`)."""
     g = net.gather_to_root(share, "fr", root=receiver)
     return pp.unpack(g)
 
 
+@spanned("pss")
 def d_unpack2(pp: PackedSharingParams, net: PartyNet, share: torch.Tensor, receiver: int = 0):
     g = net.gather_to_root(share, "fr", root=receiver)
     return pp.unpack2(g)
 
 
+@spanned("pss")
 def d_unpack2_many(pp: PackedSharingParams, net: PartyNet, shares: torch.Tensor,
                    receiver: int = 0) -> torch.Tensor:
     """shares [P, B, L] -> plain values [B * l, L] at `receiver`, slot-major."""
@@ -58,6 +63,7 @@ def d_unpack2_many(pp: PackedSharingParams, net: PartyNet, shares: torch.Tensor,
     return per_slot.reshape(per_slot.shape[:-3] + (B * pp.l, pp.field.L))
 
 
+@spanned("pss")
 def pss2ss(pp: PackedSharingParams, net: PartyNet, share: torch.Tensor,
            count: bool = True) -> torch.Tensor:
     """share [P, ..., L] (one packed share per party per batch slot) ->

@@ -1,15 +1,15 @@
-"""Warm time of each step of the flagship prove on the port.
+"""The span tree of one flagship prove on the port, from its own recorder.
 
-The port of the JAX package's ``scripts/profile_phases.py``: each step of
-``dhyperplonk`` (leader mode, the bench entry's inputs) runs on its own,
-in the prove's order and on the previous step's outputs, between two
-synchronisations of the device: once cold, then ``--reps`` times; a row
-gives the best warm time and the cold one.  The steps are the port's own
-functions (the JAX package's phased executables are a TPU compile
-workaround the port does not have): the commit, the gate identity, the
-wire identity's part a, the layered zerocheck's merged sumchecks and its
-merged opens, part c, and the final opens.  ``--only-prims`` times the
-primitives instead, through ``scripts/profile_primitives.py``.
+The port of the JAX package's ``scripts/profile_phases.py``: one warm-up
+``dhyperplonk`` (leader mode, the bench entry's inputs), then ``--reps``
+proves with the recorder of ``utils/timer.py`` on; the fastest one's spans
+print as a tree, each with its total and self time (its duration less what
+its child spans cover) in ms and its family.  As in the benchmark's traced
+window, the protocol steps (``trace`` spans) synchronise the device at
+their edges and the primitives' spans do not: a primitive's time is the
+host's, and its device work shows in the step that waits for it.
+``--only-prims`` times the primitives on their own instead, through
+``scripts/profile_primitives.py``.
 
     python -m scalable_collaborative_zksnark_tpu_torch.scripts.profile_phases [--n 16] [--l 8] [--reps 5] [--device cuda]
 """
@@ -23,65 +23,60 @@ from ..device import DEFAULT, resolve, sync
 from ..hyperplonk import collaborative as co
 from ..hyperplonk.params import packed_proving_parameters
 from ..mpc.net import PartyNet
+from ..utils import timer
 from . import profile_primitives
 
-C = 8  # the prove's window-width hint
 
+def tree(spans) -> list[dict]:
+    """One job's spans, depth first in start order: a row each with its
+    depth, total and self ms and family."""
+    own = timer.self_ns(spans)
+    kids: dict = {}
+    for s in sorted(spans, key=lambda s: s.start_ns):
+        kids.setdefault(s.parent, []).append(s)
+    ids = {s.id for s in spans}
+    rows = []
 
-def _wire_b_opens(n: int, pk, net: PartyNet, v1x, vx0, vx1):
-    """The layered zerocheck's opens, as ``_wire_part_b`` makes them: one
-    ``d_open_many`` over the halving slices of every layer."""
-    s_bits = net.n.bit_length() - 1
-    half = v1x.shape[-2] // 2
-    cur = [v1x[..., :half, :], vx0[..., :half, :], vx1[..., :half, :]]
-    items = []
-    for i in range(1, n - s_bits + 1):
-        items.append((co._stackp(cur), pk.challenge_r2[i:]))
-        cur = [t[..., t.shape[-2] // 2:, :] for t in cur]
-    return pk.d_commitment.d_open_many(net, items, c=C)
+    def walk(s, depth):
+        rows.append({"span": s.name, "depth": depth, "family": s.family,
+                     "total_ms": (s.end_ns - s.start_ns) / 1e6, "self_ms": own[s.id] / 1e6})
+        for k in kids.get(s.id, []):
+            walk(k, depth + 1)
+
+    for s in sorted((s for s in spans if s.parent not in ids), key=lambda s: s.start_ns):
+        walk(s, 0)
+    return rows
 
 
 def run(n: int = 16, l: int = 8, device=DEFAULT, reps: int = 5) -> list[dict]:
-    """A row for each step of the prove: its best warm time of ``reps`` and
-    its cold time, in ms."""
+    """The rows of ``tree`` for the fastest of ``reps`` recorded proves."""
     dev = resolve(device)
     net = PartyNet(8 * l, mode="leader")
     t0 = time.perf_counter()
     pk = packed_proving_parameters(n, l, net, device=dev)
     sync(dev)
     print(f"# setup: {time.perf_counter() - t0:.1f}s", flush=True)
-    F = pk.pp.field
-    gc = 1 << n
-    # dhyperplonk's placeholders at its default seed
-    local_s_p = net.random_rows(F, (gc * 4 // net.n,), 2 * 31 + 1)
-    local_s = net.random_rows(F, (gc * 4 // net.n // pk.pp.l,), 2 * 31 + 2)
-    eq_top = co.eq_top_table(F, net.n)
-    rows = []
-
-    def timed(name, fn, *args):
-        times = []
-        for _ in range(reps + 1):
-            sync(dev)
-            t0 = time.perf_counter()
-            out = fn(*args)
-            sync(dev)
-            times.append(time.perf_counter() - t0)
-        row = {"step": name, "warm_ms": min(times[1:]) * 1e3, "cold_ms": times[0] * 1e3}
-        print(f"{name:28s} warm {row['warm_ms']:9.2f} ms   (cold {row['cold_ms']:9.2f} ms)",
-              flush=True)
-        rows.append(row)
-        return out
-
-    coms = timed("commit", co._commit_step, pk, net, C)
-    timed("gate_identity", co._gate_identity, pk, net)
-    s_shares = timed("exchange_s", co._exchange_s, F, net, local_s)
-    wa = timed("wire_a", co._wire_part_a, n, pk, net, local_s_p, s_shares, C)
-    v1x, vx0, vx1, leader_tree = wa[3]
-    timed("wire_b_sums (merged)", co._wire_b_sumchecks, pk, net, v1x, vx0, vx1, pk.eq_r2_p,
-          pk.challenge_r2)
-    timed("wire_b_opens (merged)", _wire_b_opens, n, pk, net, v1x, vx0, vx1)
-    timed("wire_c", co._wire_part_c, pk, net, leader_tree, eq_top, C)
-    timed("final_opens", co._final_opens, pk, net, coms, C)
+    co.dhyperplonk(n, pk, net)  # warm-up: kernel loads, first launches
+    sync(dev)
+    timer.clear()
+    timer.enable(True, show=False)
+    timer.set_sync(lambda: sync(dev))
+    try:
+        for _ in range(max(reps, 1)):
+            co.dhyperplonk(n, pk, net)
+        spans = timer.spans()
+    finally:
+        timer.set_sync(None)
+        timer.enable(False)
+        timer.clear()
+    roots = [s for s in spans if s.name == "dhyperplonk"]
+    best = min(roots, key=lambda s: s.end_ns - s.start_ns)
+    rows = tree([s for s in spans if s.job == best.job])
+    print(f"# {len(rows)} spans in the fastest of {len(roots)} proves", flush=True)
+    print(f"{'span':52s} {'total ms':>10s} {'self ms':>10s}  family", flush=True)
+    for r in rows:
+        print(f"{'  ' * r['depth'] + r['span']:52s} {r['total_ms']:10.3f} {r['self_ms']:10.3f}  "
+              f"{r['family'] or ''}", flush=True)
     return rows
 
 

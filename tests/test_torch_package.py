@@ -27,9 +27,10 @@ from scalable_collaborative_zksnark_tpu_torch.primitives import cuda_sumcheck
 from scalable_collaborative_zksnark_tpu_torch.primitives import mxu_sumcheck
 from scalable_collaborative_zksnark_tpu_torch.primitives import sumcheck as sumcheck_module
 from scalable_collaborative_zksnark_tpu_torch.hyperplonk import sharding
-from scalable_collaborative_zksnark_tpu_torch.scripts import (chain_bench, exp_fieldmul,
-                                                               microbench, mxu_micro,
-                                                               profile_phases, run_multihost)
+from scalable_collaborative_zksnark_tpu_torch.scripts import (chain_bench, check_recorder,
+                                                               exp_fieldmul, microbench,
+                                                               mxu_micro, profile_phases,
+                                                               run_multihost)
 from scalable_collaborative_zksnark_tpu_torch.utils import timer
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -104,6 +105,8 @@ def test_split_entry_points_default_to_cuda(no_cuda):
         run_multihost.main(["--n", "4", "--l", "1"])
     with pytest.raises(RuntimeError, match="cuda"):
         profile_phases.main(["--n", "4", "--l", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        check_recorder.main(["--n", "4", "--l", "1"])
     for backend in ("gloo", "nccl"):
         with pytest.raises(RuntimeError, match="cuda|CUDA"):
             sharding.init_party_group(backend, 2, 0, "file:///nonexistent")
