@@ -24,8 +24,10 @@ Phases (any failure raises and exits non-zero):
    points and an edge set, ``add_masked`` and ``add_reset`` there under a
    random mask, masks of all 0s, all 1s and alternating, the scalar ladder
    on 1,024 full scalars and 0, 1, r - 1, on a warp whose teams diverge
-   and on 2-limb scalars, the accumulate on a forced x-collision, on a
-   warp whose teams diverge and on random keys over two staging chunks) bit for bit against
+   and on 2-limb scalars, the accumulate (walk and join) on a forced
+   x-collision, on a warp whose teams diverge, on random keys over two
+   staging chunks, one bucket over every lane, empty buckets and digit 0,
+   130 blocks, and a full 2^22-entry pass at the card's lanes) bit for bit against
    its plain PyTorch version on the card, and time both (CUDA events,
    median of 10 or more for the kernels; ``add_mixed`` and ``double`` on
    their team kernel also by device time); print each kernel's registers
@@ -76,7 +78,7 @@ Phases (any failure raises and exits non-zero):
    beside its bound there, the product's chain bound and the device time
    of an empty launch); the operands the elementwise wrapper
    copied in the dense prove (``cuda_fr.copies``, which must be 0); the dense
-   prove must launch point add 854, the accumulate 15, Horner 15,
+   prove must launch point add 665, the accumulate 30, Horner 15,
    bucket-serial 12 and the ladder 3 times, the non-dense one
    ``add_masked`` 1,755 and the ladder 3, the SRS bases the ladder 6; the (6, 1) prove in both
    configurations, pinned; the int8-engine configuration (``SCZK_MXU=1``):
@@ -384,9 +386,9 @@ FQ_MULS = 4 * 12 * 12 + 12  # 32-bit multiplies of one Fq CIOS product
 # products per op on the critical path of one thread (general or mixed
 # add: Z1Z1 -> U2 -> HH -> J -> Y3; double: B -> t -> ... -> Y3)
 ADD_DEPTH, DOUBLE_DEPTH = 5, 3
-# point add, accumulate, Horner and bucket-serial launches of one dense
-# (16, 8) prove
-PROVE_G1_LAUNCHES = {"g1_add": 854, "g1_accumulate": 15, "g1_horner": 15, "g1_bucket_serial": 12,
+# point add, accumulate (its walk and its join: 15 passes), Horner and
+# bucket-serial launches of one dense (16, 8) prove
+PROVE_G1_LAUNCHES = {"g1_add": 665, "g1_accumulate": 30, "g1_horner": 15, "g1_bucket_serial": 12,
                      "g1_scalar_mul": 3}
 # the ladder and masked-add launches of one non-dense (16, 8) prove, and
 # the ladders of the SRS bases' set-up
@@ -398,6 +400,9 @@ SRS_LADDERS = 6
 PROVE_PHASE_LAUNCHES_MAX = 16
 # the names the profiler gives the team kernels of g1.cu
 ADD_KERNEL, ACCUMULATE_KERNEL = "add_team_kernel", "accumulate_team_kernel"
+# the accumulate's walk and its join alone (the walk's name ends where its
+# parameters begin)
+ACCUMULATE_WALK, ACCUMULATE_JOIN = ACCUMULATE_KERNEL + "(", ACCUMULATE_KERNEL + "_join"
 POINT_OP_KERNEL = "point_op_team_kernel"  # add_mixed and double
 LADDER_KERNEL, MASKED_KERNEL = "scalar_mul_team_kernel", "masked_op_team_kernel"
 
@@ -896,18 +901,29 @@ def check_g1(curve, int_rate: float, lat_ms: float) -> dict:
                cuda_g1.scalar_mul.plain(spec, *args))
         held.append(name)
 
-    # the accumulate on a forced x-collision, a warp whose teams diverge and
-    # random keys over two staging chunks (each case doubles somewhere)
+    # the accumulate on accumulate_cases (each doubles somewhere) and on a
+    # full pass at the card's lanes
     repaired = {}
-    for name, args in accumulate_cases(curve):
+    full = full_pass_case(curve)
+    for name, args in accumulate_cases(curve) + [("full_pass", full)]:
+        before = int(cuda_g1.accumulate.repaired)
         out = cuda_g1.accumulate(spec, *args)
-        _equal(f"g1 accumulate ({name})", out, cuda_g1.accumulate.plain(spec, *args))
-        if out[1] <= 0:
-            raise AssertionError(f"accumulate ({name}): no lane repaired")
-        repaired[name] = out[1]
+        doubled = int(cuda_g1.accumulate.repaired) - before
+        want, want_doubled = cuda_g1.accumulate_plain(spec, *args)
+        _equal(f"g1 accumulate ({name})", out, want)
+        if doubled != want_doubled or (doubled <= 0 and name != "full_pass"):
+            raise AssertionError(f"accumulate ({name}): {doubled} adds doubled, the plain "
+                                 f"version {want_doubled}")
+        repaired[name] = doubled
+    full_row = {
+        "shape": [full[0].shape[0], full[4], full[5]],
+        **_accumulate_device_ms(lambda: cuda_g1.accumulate(spec, *full), full[4]),
+        **cuda_g1.attributes("accumulate"), "join": cuda_g1.attributes("accumulate_join"),
+        "resident_lanes": cuda_g1.resident_lanes(curve.device.index or 0)}
     masked_rows, masked_held = check_masked(curve, int_rate, lat_ms)
     rows.update(masked_rows)
-    return rows, {"accumulate_repaired": repaired, "ladder_cases_held": held,
+    return rows, {"accumulate_repaired": repaired, "accumulate_full_pass": full_row,
+                  "ladder_cases_held": held,
                   "masked_cases_held": masked_held}
 
 
@@ -936,10 +952,10 @@ def _ladder_bound(sc: torch.Tensor, int_rate: float, lat_ms: float):
 
 
 def accumulate_cases(curve) -> list:
-    """(name, (keys, pid, neg, bases, T, steps)) for the accumulate, each
-    with at least one doubling:
+    """(name, (keys, pid, neg, bases, T, NB, K)) for the accumulate (NB
+    buckets, digit 0 every K), each with at least one add that doubles:
 
-    * ``collision``: 4 lanes of 3 steps, buckets 0 and 3 hold a point twice;
+    * ``collision``: 4 lanes of 3 steps, buckets 1 and 4 hold a point twice;
     * ``diverging_warp``: 8 lanes, whose teams share one warp, of 6 steps,
       where the teams take different branches at the same step: at step 1
       three add, two double, two cancel and one resets; lane 6 adds to the
@@ -948,34 +964,87 @@ def accumulate_cases(curve) -> list:
     * ``random_two_chunks``: 72 lanes (a full block of 64 lanes and a
       partial one) of 70 steps (past one 64-step staging chunk), keys
       sorted from 300 buckets, bases and signs at random, the last 13
-      entries padding."""
+      entries padding;
+    * ``one_bucket``: every entry in one bucket, over 80 lanes of 2 steps:
+      one chain of lanes across a block boundary into the join;
+    * ``ragged_digit0``: 70 lanes of 5 steps over 313 entries (the last
+      seven lanes and two entries padding), keys sorted from 60 of the
+      buckets 3 .. 149 of 160, so the first, last and many inner buckets
+      are empty, digit 0 every 8 buckets, runs that begin at lanes' first
+      steps, cross lanes and blocks;
+    * ``many_blocks``: 8,313 entries on 8,320 lanes of one step, 130
+      blocks, past the join's 128 teams (two blocks a team): a bucket
+      across every block boundary, chains of whole blocks across a team
+      boundary (blocks 3 .. 5, into block 6) and within one (blocks 9 and
+      10, into block 11), an x-collision where two lanes of a chain meet."""
     dev = curve.device
     P = curve.double(rand_points_flat(curve, 16, 61))
     bases = map_points(lambda a: a.contiguous(), curve.normalize(P))
     t = lambda v, dt=torch.int64: torch.tensor(v, dtype=dt, device=dev)  # noqa: E731
-    cases = [("collision", (t([0, 0, 0, 1, 1, 2, 3, 3, 3, 3]), t([0, 0, 1, 2, 3, 4, 5, 5, 6, 7]),
-                            t([0, 0, 1, 0, 1, 0, 0, 0, 0, 1], torch.bool), bases, 4, 3))]
+    cases = [("collision", (t([1, 1, 1, 2, 2, 3, 4, 4, 4, 4]), t([0, 0, 1, 2, 3, 4, 5, 5, 6, 7]),
+                            t([0, 0, 1, 0, 1, 0, 0, 0, 0, 1], torch.bool), bases, 4, 5, 5))]
     lanes = [  # (keys, pid, neg) of each lane's 6 steps
-        ([0, 0, 0, 0, 1, 1], [0, 1, 2, 3, 4, 5], [0, 1, 0, 0, 0, 1]),  # adds, a reset
-        ([1, 1, 2, 2, 2, 3], [6, 6, 6, 7, 0, 1], [0, 0, 0, 0, 0, 0]),  # doubles at step 1
-        ([3, 3, 4, 4, 5, 5], [2, 2, 3, 3, 4, 5], [0, 1, 0, 0, 0, 0]),  # cancel, then doubles
-        ([6, 7, 8, 9, 10, 11], [8, 9, 10, 11, 12, 13], [0, 1, 0, 1, 0, 1]),  # resets only
-        ([12] * 6, [0, 1, 2, 3, 4, 5], [1, 0, 1, 0, 1, 0]),  # adds only
-        ([13, 13, 13, 14, 14, 14], [7, 7, 7, 14, 15, 14], [0, 0, 0, 0, 1, 0]),  # double, add
-        ([15, 15, 16, 16, 16, 16], [1, 1, 5, 5, 5, 5], [0, 1, 0, 1, 0, 0]),  # cancels, double
-        ([17, 17], [3, 4], [0, 0]),  # then padding
+        ([1, 1, 1, 1, 2, 2], [0, 1, 2, 3, 4, 5], [0, 1, 0, 0, 0, 1]),  # adds, a reset
+        ([2, 2, 3, 3, 3, 4], [6, 6, 6, 7, 0, 1], [0, 0, 0, 0, 0, 0]),  # doubles at step 1
+        ([4, 4, 5, 5, 6, 6], [2, 2, 3, 3, 4, 5], [0, 1, 0, 0, 0, 0]),  # cancel, then doubles
+        ([7, 8, 9, 10, 11, 12], [8, 9, 10, 11, 12, 13], [0, 1, 0, 1, 0, 1]),  # resets only
+        ([13] * 6, [0, 1, 2, 3, 4, 5], [1, 0, 1, 0, 1, 0]),  # adds only
+        ([14, 14, 14, 15, 15, 15], [7, 7, 7, 14, 15, 14], [0, 0, 0, 0, 1, 0]),  # double, add
+        ([16, 16, 17, 17, 17, 17], [1, 1, 5, 5, 5, 5], [0, 1, 0, 1, 0, 0]),  # cancels, double
+        ([18, 18], [3, 4], [0, 0]),  # then padding
     ]
     cases.append(("diverging_warp", (t(sum((k for k, _, _ in lanes), [])),
                                      t(sum((p for _, p, _ in lanes), [])),
                                      t(sum((n for _, _, n in lanes), []), torch.bool),
-                                     bases, 8, 6)))
+                                     bases, 8, 19, 19)))
     rng = np.random.RandomState(62)
     T, steps = 72, 70
     E = T * steps - 13
     cases.append(("random_two_chunks", (t(np.sort(rng.randint(0, 300, E))),
                                         t(rng.randint(0, 16, E)),
-                                        t(rng.randint(0, 2, E), torch.bool), bases, T, steps)))
+                                        t(rng.randint(0, 2, E), torch.bool), bases, T, 300, 300)))
+    pid, neg = rng.randint(0, 16, 160), rng.randint(0, 2, 160)
+    pid[11], neg[11] = pid[10], neg[10]  # lane 5 doubles
+    cases.append(("one_bucket", (t([1] * 160), t(pid), t(neg, torch.bool), bases, 80, 2, 2)))
+    E = 313
+    keys = np.sort(rng.choice(rng.choice(np.arange(3, 150), 60, replace=False), E))
+    pid, neg = rng.randint(0, 16, E), rng.randint(0, 2, E)
+    dup = int(np.flatnonzero(keys[1:] == keys[:-1])[0])
+    pid[dup + 1], neg[dup + 1] = pid[dup], neg[dup]
+    cases.append(("ragged_digit0", (t(keys), t(pid), t(neg, torch.bool), bases, 70, 160, 8)))
+    cases.append(("many_blocks", _many_blocks_case(bases, rng, t)))
     return cases
+
+
+def full_pass_case(curve, seed: int = 71) -> tuple:
+    """(keys, pid, neg, bases, T, NB, K) of a full dense pass on
+    ``curve``'s device, as the n22 prove's MSMs over 2^21 points walk it:
+    two windows at c = 13 (2 x 4,097 buckets), E = 2^22 entries keyed by
+    seeded random digits, random signs, T the device's lanes."""
+    N, K = 1 << 21, (1 << 12) + 1
+    dev = curve.device
+    gen = torch.Generator().manual_seed(seed)
+    digits = torch.randint(0, K, (2, N), generator=gen) + (torch.arange(2) * K)[:, None]
+    keys, pid = torch.sort(digits, dim=1, stable=True)
+    neg = torch.randint(0, 2, (2 * N,), generator=gen).bool()
+    return (keys.reshape(-1).to(dev), pid.reshape(-1).to(dev), neg.to(dev),
+            rand_points_flat(curve, N, seed), cuda_g1.accumulate_lanes(2 * N, dev), 2 * K, K)
+
+
+def _many_blocks_case(bases, rng, t) -> tuple:
+    """``accumulate_cases``' ``many_blocks``: lane t holds entry t alone;
+    distinct keys but where lanes share one across a block boundary or
+    along a chain of whole blocks."""
+    T = 130 * 64
+    E = T - 7
+    keys = np.arange(E, dtype=np.int64) * 2
+    for b in range(1, 130):  # the last lane of a block and the first of the next
+        keys[64 * b - 1] = keys[64 * b]
+    for lo, hi in ((64 * 3 - 1, 64 * 6), (64 * 9 - 1, 64 * 11)):  # whole blocks 3-5, 9-10
+        keys[lo:hi + 1] = keys[hi]
+    pid, neg = rng.randint(0, 16, E), rng.randint(0, 2, E)
+    pid[64 * 4 + 1], neg[64 * 4 + 1] = pid[64 * 4], neg[64 * 4]  # two lanes of a chain meet
+    return (t(keys), t(pid), t(neg, torch.bool), bases, T, int(keys[-1]) + 3, 4 * E)
 
 
 def ladder_cases(curve) -> list:
@@ -1111,15 +1180,16 @@ def time_recorded(calls, errs: dict, int_rate: float, lat_ms: float) -> dict:
         kern = getattr(cuda_g1, name)
         spec = args[0]
         if name == "accumulate":
-            _, keys, pid, neg, bases, T, steps = args
+            _, keys, pid, neg, bases, T, NB, _ = args
+            steps = -(-keys.shape[0] // T)
             pad = torch.full((T * steps - keys.shape[0],), cuda_g1.SENTINEL, dtype=keys.dtype,
                              device=keys.device)
             lt = torch.cat([keys, pad]).reshape(T, steps).T
             adds = int(((lt[1:] == lt[:-1]) & (lt[1:] != cuda_g1.SENTINEL)).sum())
             E = keys.shape[0]
-            bound = _g1_bound(adds * 11, E * 17 + bases[0].shape[0] * 288 + T * steps * 288,
+            bound = _g1_bound(adds * 11, E * 17 + bases[0].shape[0] * 288 + NB * 288,
                               0, int_rate, lat_ms)
-            shape = (E, T, steps)
+            shape = (E, T, steps, NB)
         elif name == "horner":
             tot, c = args[1], args[2]
             W, C = tot[0].shape[:2]
@@ -1136,9 +1206,26 @@ def time_recorded(calls, errs: dict, int_rate: float, lat_ms: float) -> dict:
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         rows[key] = _g1_row(name, shape, errs[key], _ms(lambda: kern(*args)), plain_ms, bound)
-        if name == "accumulate":  # the wrapper also waits for the repair count
-            rows[key]["device_ms"] = _device_ms(lambda: kern(*args), ACCUMULATE_KERNEL)
+        if name == "accumulate":  # the walk and its join
+            rows[key].update(_accumulate_device_ms(lambda: kern(*args), T))
     return rows
+
+
+def _accumulate_launches(args) -> int:
+    """Launches of one accumulate call on ``args`` (spec, keys, pid, neg,
+    bases, T, NB, K): its walk and, past one block of lanes, its join."""
+    return 1 + (args[5] > cuda_g1.SCAN_LANES)
+
+
+def _accumulate_device_ms(fn, T: int) -> dict:
+    """Device ms of an accumulate call ``fn`` over T lanes: its walk's and
+    its join's (0 where T fits one block), each a mean over the launches
+    a profile session held, and their sum (None where either was not
+    measured)."""
+    walk = _device_ms(fn, ACCUMULATE_WALK)
+    join = _device_ms(fn, ACCUMULATE_JOIN) if T > cuda_g1.SCAN_LANES else 0.0
+    total = None if walk is None or join is None else walk + join
+    return {"device_ms": total, "walk_device_ms": walk, "join_device_ms": join}
 
 
 # ---------------------------------------------------------------------------
@@ -2809,10 +2896,13 @@ def main() -> int:
             _check_pin("c_commit_comm", _comm(net))
         if record:
             replayed[name], errs = replay(calls)
+            made = dict(replayed[name], g1_accumulate=sum(
+                _accumulate_launches(args) for key, args, _ in calls if key == "g1_accumulate"))
             for key, n in launches[name].items():
-                if key != "sumcheck_product_phase" and replayed[name].get(key, 0) != n:
-                    raise AssertionError(f"{name}: {key} launched {n} times, "
-                                         f"{replayed[name].get(key, 0)} calls replayed")
+                if key != "sumcheck_product_phase" and made.get(key, 0) != n:
+                    raise AssertionError(f"{name}: {key} launched {n} times, the "
+                                         f"{replayed[name].get(key, 0)} calls replayed "
+                                         f"{made.get(key, 0)}")
             g1_times[name] = time_recorded(calls, errs, int_rate, lat_ms)
         del calls, out
         paths[f"{name}_ms"] = _host_ms(run, 3)

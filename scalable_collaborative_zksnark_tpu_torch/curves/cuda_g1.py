@@ -4,9 +4,9 @@ Replaces ``curves/pallas_g1.py``: ``_add_kernel`` (``add``, ``add_mixed``)
 and ``_double_kernel`` behind ``point_op``; ``_add_masked_kernel``
 (``add_masked``) and ``_add_reset_kernel`` (``add_reset``);
 ``_add_reset_lazy_kernel``
-with the scan and repair around it in ``primitives/msm.py``
-(``accumulate``); ``_scalar_mul_kernel`` (``scalar_mul``);
-``_horner_kernel`` (``horner``); ``_bucket_serial_kernel``
+with the scan and repair around it in ``primitives/msm.py`` and the joins
+of its lanes (``accumulate``: the bucket sums); ``_scalar_mul_kernel``
+(``scalar_mul``); ``_horner_kernel`` (``horner``); ``_bucket_serial_kernel``
 (``bucket_serial``).  The kernels are ``csrc/g1.cu`` on the group law of
 ``csrc/g1.cuh``, and ``csrc/g1_chain.cu`` (Horner, bucket-serial); every
 kernel but bucket-serial runs the formulas by dependency levels on a team
@@ -51,7 +51,8 @@ _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "sczk_g1_point_op": [_I] + [_VP] * 9 + [_I, _VP, _VP],
     "sczk_g1_masked_op": [_I] + [_VP] * 10 + [_I, _VP, _VP],
-    "sczk_g1_accumulate": [_VP, _VP, _VP, _LL, _VP, _VP, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP],
+    "sczk_g1_accumulate": [_VP, _VP, _VP, _LL] + [_VP] * 3 + [_I] * 3 + [_VP] * 10,
+    "sczk_g1_accumulate_lanes": [_VP],
     "sczk_g1_scalar_mul": [_VP, _VP, _VP, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP],
     "sczk_g1_attrs": [_I, _VP],
     "sczk_fq_mul_chain": [_VP, _I, _VP, _VP, _VP],
@@ -66,10 +67,17 @@ _CHAIN_SIGNATURES = {
 }
 # kernels of csrc/g1.cu and of csrc/g1_chain.cu, in their attrs entries' order
 ATTR_KERNELS = ("add", "add_mixed", "double", "accumulate", "scalar_mul", "add_masked",
-                "add_reset")
+                "add_reset", "accumulate_join")
 CHAIN_ATTR_KERNELS = ("horner", "bucket_serial")
 
 MAX_ACCUMULATE_BASES = 1 << 29  # the accumulate stages a base index in 29 bits
+SCAN_LANES = 64  # scan lanes a block of the accumulate's walk (csrc/g1.cu kScanLanes)
+JOIN_TEAMS = 128  # teams of the accumulate's join over blocks (csrc/g1.cu kJoinTeams)
+MIN_STEPS = 32
+"""Entries a lane of the accumulate walks at least, while that leaves it
+``MIN_LANES`` lanes: a lane's share of the joins across lanes is up to
+seven general adds, which this keeps under a third of its walk."""
+MIN_LANES = 512  # lanes a short accumulate still spreads over
 LADDER_WINDOW = 4  # bits a window of the ladder (csrc/g1.cu kWindowBits)
 
 SEGMENT_FILL_THREADS = 132 * 4 * 32
@@ -190,36 +198,174 @@ def neg_y_plain(spec: FieldSpec, y: torch.Tensor, neg: torch.Tensor) -> torch.Te
     return torch.where(neg[..., None], cuda_fr.sub_plain(spec, torch.zeros_like(y), y), y)
 
 
-def accumulate_plain(spec: FieldSpec, keys: torch.Tensor, pid: torch.Tensor, neg: torch.Tensor,
-                     bases: tuple, T: int, steps: int):
-    """The dense MSM's per-lane scan (``msm.py`` ``_dense_bucket_sums``).
+def _take(pt: tuple, idx: torch.Tensor) -> tuple:
+    return tuple(a[idx] for a in pt)
 
-    Entry e of the key-sorted list is the point ``bases[pid[e]]``, negated
-    where ``neg[e]``; the list is padded to T*steps entries with key
-    ``SENTINEL`` and infinity, and lane t owns entries [t*steps,
-    (t+1)*steps).  Returns (scanned [steps, T] points, where step s holds
-    ``(key == previous key) ? acc + P : P``, and the number of steps that
-    doubled)."""
+
+def _put(pt: tuple, idx: torch.Tensor, vals: tuple) -> tuple:
+    return tuple(a.index_copy(0, idx, v) for a, v in zip(pt, vals))
+
+
+def _add_counted(spec: FieldSpec, p1: tuple, p2: tuple, mixed: bool = False):
+    """``add_plain``'s sum and the number of lanes that doubled."""
+    out, dbl = add_plain(spec, p1, p2, mixed)
+    return out, int(dbl.sum())
+
+
+def accumulate_plain(spec: FieldSpec, keys: torch.Tensor, pid: torch.Tensor, neg: torch.Tensor,
+                     bases: tuple, T: int, NB: int, K: int):
+    """The dense MSM's bucket sums (``msm.py`` ``_dense_bucket_sums``) on
+    the kernels' schedule, add for add.
+
+    Entry e of the key-sorted list (``keys`` ascending, below NB) is the
+    point ``bases[pid[e]]``, negated where ``neg[e]``.  Bucket k is the
+    sum of the entries of key k; infinity where none has key k or k % K
+    == 0 (digit 0).  The list is padded to T*steps entries (steps =
+    ceil(E / T)) with key ``SENTINEL`` and infinity; lane t walks entries
+    [t*steps, (t+1)*steps), ``(key == previous key) ? acc + P : P``.  A
+    run that ends inside a lane and did not begin at its first step is a
+    whole bucket.  Each lane's last run (its trail) joins a segmented
+    Hillis-Steele scan over the lanes of its block of ``SCAN_LANES``
+    (v[t] = v[t - d] + v[t] where lanes t - d + 1 .. t all hold one key
+    and continue the lane before); a lane's first run (its lead) follows
+    the chain ending at the lane before (v[t - 1] + lead).  A lead whose
+    chain reaches back into the block before goes, with each block's
+    trailing chain, to the join over blocks: ``JOIN_TEAMS`` teams of g =
+    ceil(G / JOIN_TEAMS) blocks, each scanning its blocks in order, a
+    segmented Hillis-Steele scan over the teams, then per head (P[q-1] +
+    A[j-1]) + head.  Returns (buckets [NB], adds that doubled)."""
     E = keys.shape[0]
+    steps = -(-E // T)
+    dev = keys.device
     pad = T * steps - E
     pts = tuple(b[pid] for b in bases)
     pts = (pts[0], neg_y_plain(spec, pts[1], neg), pts[2])
-    keys = torch.cat([keys, torch.full((pad,), SENTINEL, dtype=keys.dtype, device=keys.device)])
-    pts = tuple(torch.cat([a, f]) for a, f in zip(pts, infinity(spec, (pad,), keys.device)))
-    keys = keys.reshape(T, steps).T
-    pts = tuple(a.reshape(T, steps, -1).transpose(0, 1) for a in pts)
-    acc = infinity(spec, (T,), keys.device)
-    prev = torch.full((T,), SENTINEL, dtype=keys.dtype, device=keys.device)
-    out, doubled = [], 0
+    kl = torch.cat([keys, torch.full((pad,), SENTINEL, dtype=keys.dtype, device=dev)])
+    pts = tuple(torch.cat([a, f]) for a, f in zip(pts, infinity(spec, (pad,), dev)))
+    kl = kl.reshape(T, steps)
+    pts = tuple(a.reshape(T, steps, -1) for a in pts)
+    acc = infinity(spec, (T,), dev)
+    prev = torch.full((T,), SENTINEL, dtype=keys.dtype, device=dev)
+    walk, doubled = [], 0
     for s in range(steps):
-        p = tuple(a[s] for a in pts)
-        same = keys[s] == prev
+        p = tuple(a[:, s] for a in pts)
+        same = kl[:, s] == prev
         summed, dbl = add_plain(spec, acc, p, mixed=True)
         acc = select(same, summed, p)
         doubled += int((same & dbl).sum())
-        prev = keys[s]
-        out.append(acc)
-    return tuple(torch.stack([o[j] for o in out]) for j in range(3)), doubled
+        prev = kl[:, s]
+        walk.append(acc)
+    walk = tuple(torch.stack([w[j] for w in walk], dim=1) for j in range(3))  # [T, steps]
+
+    out = infinity(spec, (NB,), dev)
+
+    def write(key, val):  # put_bucket: digit 0 stays infinity, padding writes nothing
+        ok = (key < NB) & (key % K != 0)
+        return _put(out, key[ok], _take(val, ok))
+
+    # runs: the lead ends at its lane's first run end; others inside are whole
+    ends = torch.ones((T, steps), dtype=torch.bool, device=dev)
+    ends[:, :-1] = kl[:, 1:] != kl[:, :-1]
+    lead_at = ends.to(torch.int8).argmax(dim=1)
+    lanes = torch.arange(T, device=dev)
+    steps_at = torch.arange(steps, device=dev)
+    inner = ends & (steps_at[None] != lead_at[:, None]) & (steps_at[None] != steps - 1)
+    t_in, s_in = inner.nonzero(as_tuple=True)
+    out = write(kl[t_in, s_in], tuple(a[t_in, s_in] for a in walk))
+    lead = tuple(a[lanes, lead_at] for a in walk)
+    trail = tuple(a[:, -1] for a in walk)
+    first, last = kl[:, 0], kl[:, -1]
+    uni = lead_at == steps - 1
+    cl = torch.zeros(T, dtype=torch.bool, device=dev)
+    cl[1:] = first[1:] == last[:-1]
+    cr = torch.zeros(T, dtype=torch.bool, device=dev)
+    cr[:-1] = last[:-1] == first[1:]
+
+    # the blocks' Hillis-Steele scan over the trails
+    i = lanes % SCAN_LANES
+    v, wh = trail, uni & cl
+    d = 1
+    while d < SCAN_LANES:
+        at = ((i >= d) & wh).nonzero(as_tuple=True)[0]
+        if at.numel():
+            summed, n = _add_counted(spec, _take(v, at - d), _take(v, at))
+            doubled += n
+            wh = wh.index_copy(0, at, wh[at - d])
+            v = _put(v, at, summed)
+        d *= 2
+    G = -(-T // SCAN_LANES)
+    block_last = torch.clamp(torch.arange(1, G + 1, device=dev) * SCAN_LANES, max=T) - 1
+    tails, link = _take(v, block_last), wh[block_last]
+    out = write(last[~uni & ~cr], _take(trail, ~uni & ~cr))
+
+    # each lane's lead bucket
+    wh_before = torch.ones(T, dtype=torch.bool, device=dev)
+    wh_before[1:] = wh[:-1]
+    head = cl & ((i == 0) | wh_before)
+    lt = select(uni, v, lead)
+    at = (~uni & cl & (i > 0)).nonzero(as_tuple=True)[0]
+    if at.numel():
+        summed, n = _add_counted(spec, _take(v, at - 1), _take(lead, at))
+        doubled += n
+        lt = _put(lt, at, summed)
+    done = ~(uni & cr)
+    is_head = done & head & (first < NB) & (first % K != 0)
+    out = write(first[done & ~is_head], _take(lt, done & ~is_head))
+    if G == 1:
+        return out, doubled
+    hb = lanes[is_head] // SCAN_LANES  # the head's block
+    heads = _put(infinity(spec, (G,), dev), hb, _take(lt, is_head))
+    has_head = torch.zeros(G, dtype=torch.bool, device=dev).index_fill(0, hb, True)
+    head_key = first[torch.arange(G, device=dev) * SCAN_LANES]
+
+    # the join over blocks
+    g = -(-G // JOIN_TEAMS)
+    teams = -(-G // g)
+    q = torch.arange(teams, device=dev)
+    A = tails
+    for o in range(1, g):
+        j = q * g + o
+        at = j[(j < G) & link[j.clamp(max=G - 1)]]
+        if at.numel():
+            summed, n = _add_counted(spec, _take(A, at - 1), _take(A, at))
+            doubled += n
+            A = _put(A, at, summed)
+    team_last = torch.clamp(q * g + g, max=G) - 1
+    full = torch.ones(teams * g, dtype=torch.bool, device=dev)
+    wq = full.index_copy(0, torch.arange(G, device=dev), link).reshape(teams, g).all(dim=1)
+    P = _take(A, team_last)
+    d = 1
+    while d < teams:
+        at = ((q >= d) & wq).nonzero(as_tuple=True)[0]
+        if at.numel():
+            summed, n = _add_counted(spec, _take(P, at - d), _take(P, at))
+            doubled += n
+            wq = wq.index_copy(0, at, wq[at - d])
+            P = _put(P, at, summed)
+        d *= 2
+    reach = torch.ones(teams, dtype=torch.bool, device=dev)
+    for o in range(g):
+        j = q * g + o
+        real = j < G
+        jc = j.clamp(max=G - 1)
+        at = (real & has_head[jc]).nonzero(as_tuple=True)[0]  # teams with a head at offset o
+        if at.numel():
+            jj = j[at]
+            if o == 0:
+                gm = _take(P, at - 1)
+            else:
+                gm = _take(A, jj - 1)
+                r = at[reach[at]]
+                if r.numel():
+                    summed, n = _add_counted(spec, _take(P, r - 1), _take(A, j[r] - 1))
+                    doubled += n
+                    pos = torch.searchsorted(at, r)
+                    gm = _put(gm, pos, summed)
+            summed, n = _add_counted(spec, gm, _take(heads, jj))
+            doubled += n
+            out = _put(out, head_key[jj], summed)
+        reach = reach & (~real | link[jc])
+    return out, doubled
 
 
 def scalar_mul_plain(spec: FieldSpec, pt: tuple, scalars: torch.Tensor) -> tuple:
@@ -484,26 +630,72 @@ def double(spec: FieldSpec, pt: tuple) -> tuple:
     return _launch_point_op(double, spec, pt, None)
 
 
+class DoubledSteps:
+    """The accumulate's adds that doubled, over calls: the plain version's
+    count on the host and one int32 counter on each card, which the
+    kernels add to where they run, so a pass waits for nothing.
+    ``int()`` reads (and waits for) the cards' counters; only tests ask."""
+
+    def __init__(self):
+        self.host = 0
+        self.cards: dict = {}
+
+    def counter(self, device: torch.device) -> torch.Tensor:
+        if device not in self.cards:
+            self.cards[device] = torch.zeros(1, dtype=torch.int32, device=device)
+        return self.cards[device]
+
+    def __int__(self) -> int:
+        return self.host + sum(int(c.item()) for c in self.cards.values())
+
+
+@functools.lru_cache(maxsize=None)
+def resident_lanes(index: int) -> int:
+    """Scan lanes of the accumulate's walk resident on every SM of card
+    ``index`` at once: blocks an SM at the kernel's occupancy (the CUDA
+    runtime's count from its registers and shared memory) times the SMs
+    times ``SCAN_LANES``."""
+    out = np.zeros(3, dtype=np.int32)
+    with torch.cuda.device(index):
+        cuda_build.check(_lib().sczk_g1_accumulate_lanes(out.ctypes.data), "accumulate occupancy")
+    return int(out[0])
+
+
+def accumulate_lanes(E: int, device) -> int:
+    """Lanes T of an accumulate over E entries on ``device``: on a card the
+    lanes it holds at once (``resident_lanes``), fewer where a lane would
+    walk under ``MIN_STEPS`` entries (but no fewer than ``MIN_LANES``);
+    never more than E.  The plain version takes any T."""
+    device = torch.device(device)
+    T = max(MIN_LANES, E // MIN_STEPS)
+    if device.type == "cuda":
+        T = min(T, resident_lanes(device.index if device.index is not None
+                                  else torch.cuda.current_device()))
+    return max(1, min(T, E))
+
+
 def accumulate(spec: FieldSpec, keys: torch.Tensor, pid: torch.Tensor, neg: torch.Tensor,
-               bases: tuple, T: int, steps: int):
-    """The dense MSM's lane scan (see ``accumulate_plain``): one launch on
-    CUDA, the plain version on the CPU.  Returns (scanned, doubled steps);
-    ``accumulate.repaired`` sums the doubled steps over calls."""
+               bases: tuple, T: int, NB: int, K: int) -> tuple:
+    """The dense MSM's bucket sums [NB] over T lanes (see
+    ``accumulate_plain``): on CUDA the walk and, where it has more than one
+    block, the join (two launches); the plain version on the CPU.
+    ``accumulate.repaired`` counts the adds that doubled."""
     if _on_cpu(keys, *bases):
-        scanned, doubled = accumulate.plain(spec, keys, pid, neg, bases, T, steps)
-    else:
-        scanned, doubled = _launch_accumulate(spec, keys, pid, neg, bases, T, steps)
-    accumulate.repaired += doubled
-    return scanned, doubled
+        out, doubled = accumulate_plain(spec, keys, pid, neg, bases, T, NB, K)
+        accumulate.repaired.host += doubled
+        return out
+    return _launch_accumulate(spec, keys, pid, neg, bases, T, NB, K)
 
 
-def _launch_accumulate(spec, keys, pid, neg, bases, T, steps):
+def _launch_accumulate(spec, keys, pid, neg, bases, T, NB, K):
     _check(spec, *bases)
     E = keys.shape[0]
     if keys.dtype != torch.int64 or pid.dtype != torch.int64 or neg.dtype != torch.bool:
         raise TypeError("keys and pid must be int64, neg bool")
-    if pid.shape != (E,) or neg.shape != (E,) or not 0 <= E <= T * steps:
-        raise ValueError(f"{E} entries do not fit {T} lanes of {steps} steps")
+    if pid.shape != (E,) or neg.shape != (E,) or E < 1 or T < 1:
+        raise ValueError(f"{E} entries, {tuple(pid.shape)} pid, {tuple(neg.shape)} neg, {T} lanes")
+    if not 1 <= NB < SENTINEL or K < 1:
+        raise ValueError(f"{NB} buckets, digit-0 period {K}")
     for x in (keys, pid, neg):
         if x.device != bases[0].device:
             raise TypeError(f"operands on {x.device} and {bases[0].device}")
@@ -512,15 +704,18 @@ def _launch_accumulate(spec, keys, pid, neg, bases, T, steps):
         raise ValueError(f"{n} bases; the accumulate takes fewer than {MAX_ACCUMULATE_BASES}")
     base = [_operand(a, (n, spec.num_limbs)) for a in bases]
     keys, pid, neg = keys.contiguous(), pid.contiguous(), neg.contiguous()
-    out = _empty(spec, (steps, T), keys.device)
-    repaired = torch.zeros(1, dtype=torch.int32, device=keys.device)
+    G = -(-T // SCAN_LANES)
+    out = _empty(spec, (NB,), keys.device)
+    scratch = _empty(spec, (2 * G,), keys.device)
+    meta = torch.empty(3 * G, dtype=torch.int32, device=keys.device)
     err = _lib().sczk_g1_accumulate(keys.data_ptr(), pid.data_ptr(), neg.data_ptr(), E,
-                                    *_ptrs(base), T, steps, *_ptrs(out), repaired.data_ptr(),
+                                    *_ptrs(base), T, NB, K, *_ptrs(out), *_ptrs(scratch),
+                                    meta.data_ptr(),
+                                    accumulate.repaired.counter(keys.device).data_ptr(),
                                     g1_consts(spec).ctypes.data, _stream(keys))
-    accumulate.launches += 1
+    accumulate.launches += 1 + (G > 1)
     cuda_build.check(err, "g1 accumulate")
-    timer.count("sync.accumulate")
-    return out, int(repaired.item())
+    return out
 
 
 def scalar_mul(spec: FieldSpec, pt: tuple, scalars: torch.Tensor) -> tuple:
@@ -661,7 +856,7 @@ add_masked.plain = lambda spec, p1, p2, valid: masked_plain(  # noqa: E731
     spec, p1, p2, valid, keep_first=True)
 add_reset.plain = lambda spec, p1, p2, same: masked_plain(  # noqa: E731
     spec, p1, p2, same, keep_first=False)
-accumulate.plain = accumulate_plain
+accumulate.plain = lambda spec, *args: accumulate_plain(spec, *args)[0]  # noqa: E731
 scalar_mul.plain = lambda spec, pt, scalars: scalar_mul_plain(  # noqa: E731
     spec, *_broadcast_scalars(pt, scalars))
 horner.plain = horner_plain
@@ -669,5 +864,6 @@ bucket_serial.plain = bucket_serial_plain
 
 add.launches = add_mixed.launches = double.launches = 0
 add_masked.launches = add_reset.launches = 0
-accumulate.launches = accumulate.repaired = 0
+accumulate.launches = 0
+accumulate.repaired = DoubledSteps()
 scalar_mul.launches = horner.launches = bucket_serial.launches = 0

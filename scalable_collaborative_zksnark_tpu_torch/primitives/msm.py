@@ -12,8 +12,9 @@ kernel); ``msm_ragged`` then splits segments into chunks of at most 4,096
 points and sums the chunk partials.  Per window of c
 bits, every (window, entry) pair becomes one entry of a globally
 key-sorted list (key = window, segment, digit); ``cuda_g1.accumulate``
-walks that list in T lanes, one mixed add per entry, and a log2(T)-step
-segmented scan over the lane summaries carries buckets that cross lanes.
+walks that list in as many lanes as the card holds at once, one mixed
+add per entry, joins the buckets that cross lanes in the same kernel
+and one more launch, and returns the bucket sums.
 Bucket sums are weighted (sum_k k*B_k) by ``cuda_g1.bucket_serial`` when
 there are at least ``SERIAL_REDUCE_MIN_LANES`` (window, segment) lanes,
 else by a prefix scan and a tree sum, and windows are combined by
@@ -59,9 +60,6 @@ from ..utils import timer
 
 NAIVE_MAX = 256
 """Up to this many points an MSM is one batched double-and-add and a tree sum."""
-
-DENSE_LANES = 8192
-"""Lanes of the dense accumulation: each walks E/T entries of the sorted list."""
 
 SERIAL_REDUCE_MIN_LANES = 192
 """(window, segment) lanes from which the weighted bucket reduce runs the
@@ -149,56 +147,19 @@ def _weighted_bucket_totals(curve: Curve, acc_wck: PointJ) -> PointJ:
 
 
 def _dense_bucket_sums(curve: Curve, bases: PointJ, pid: torch.Tensor, neg: torch.Tensor,
-                       keys: torch.Tensor, ends_g: torch.Tensor, starts_g: torch.Tensor,
-                       lens: torch.Tensor, T: int = DENSE_LANES) -> PointJ:
+                       keys: torch.Tensor, NB: int, K: int) -> PointJ:
     """Bucket sums from a globally key-sorted entry list.
 
     Entry e is ``bases[pid[e]]`` (affine, z in {0, 1}), negated where
-    ``neg[e]``; ``keys`` [E] int64 ascending; ``ends_g`` / ``starts_g`` /
-    ``lens`` [NB]: global end (exclusive), start and length per bucket.
-    Returns PointJ [NB], infinity for an empty bucket."""
-    E = keys.shape[0]
-    # the cross-lane scan costs ~log2(T) adds on T lanes whatever E is:
-    # keep at least ~32 steps per lane, and no fewer than 512 lanes
-    if E < 32 * T:
-        T = max(512, 1 << max(E // 32, 1).bit_length() - 1)
-    T = min(T, E)
-    steps = -(-E // T)
-    scanned, _ = cuda_g1.accumulate(curve.fq.spec, keys, pid, neg, bases, T, steps)
-    scanned = PointJ(*scanned)  # [steps, T]
-    pad = torch.full((steps * T - E,), cuda_g1.SENTINEL, dtype=keys.dtype, device=keys.device)
-    keys_lt = torch.cat([keys, pad]).reshape(T, steps).T
-
-    # lane summaries: trailing-run sum, first and last key, key-uniform lane
-    first_key, last_key = keys_lt[0], keys_lt[-1]
-    val = map_points(lambda a: a[-1], scanned)
-    fk, wh = first_key, first_key == last_key
-    idx = torch.arange(T, device=keys.device)
-    for step in range(max((T - 1).bit_length(), 1)):
-        # Hillis-Steele over blocks of lanes: a block's last key is always
-        # its rightmost lane's, so ``last_key`` serves at every distance;
-        # the right block's trailing run extends into the left block iff
-        # the right block is uniform and the keys meet at the boundary
-        sh = 1 << step
-        val_l = map_points(lambda a: torch.roll(a, sh, 0), val)
-        ok = idx >= sh
-        join = ok & wh & (torch.roll(last_key, sh, 0) == fk)
-        val = curve.select(join, curve.add(val, val_l), val)
-        fk = torch.where(join, torch.roll(fk, sh, 0), fk)
-        wh = torch.where(ok, join & torch.roll(wh, sh, 0), wh)
-
-    # bucket = scanned value at its last entry (+ the previous lane's run
-    # when the bucket started there)
-    e = (ends_g - 1).clamp(min=0)
-    lane, pos = e // steps, e % steps
-    v_end = map_points(lambda a: a[pos, lane], scanned)
-    prev_lane = (lane - 1).clamp(min=0)
-    carry = map_points(lambda a: a[prev_lane], val)
-    key_e = keys[e.clamp(max=E - 1)]
-    need_carry = ((lane > 0) & (starts_g < lane * steps)
-                  & (last_key[prev_lane] == key_e) & (first_key[lane] == key_e))
-    total = curve.select(need_carry, curve.add(v_end, carry), v_end)
-    return curve.select(lens > 0, total, curve.infinity(lens.shape))
+    ``neg[e]``; ``keys`` [E] int64 ascending, below NB.  Returns PointJ
+    [NB], infinity for an empty bucket and for digit 0 (key % K == 0).
+    ``cuda_g1.accumulate`` walks the list in T lanes, T from E and the
+    card (``cuda_g1.accumulate_lanes``), and joins the buckets that cross
+    lanes."""
+    T = cuda_g1.accumulate_lanes(keys.shape[0], keys.device)
+    timer.count("msm.dense_passes")
+    timer.count("msm.dense_lanes", T)
+    return PointJ(*cuda_g1.accumulate(curve.fq.spec, keys, pid, neg, bases, T, NB, K))
 
 
 def _pick_c_dense(total_n: int, n_segments: int, nbits: int = 256) -> int:
@@ -238,7 +199,6 @@ def _msm_ragged_dense(curve: Curve, points: PointJ, scalars_std: torch.Tensor, s
     repeats = torch.tensor(sizes, device=dev)
     timer.count("sync.msm_repeat", 2)  # it reads ``repeats`` on the host twice
     seg_key = torch.repeat_interleave(torch.arange(C, device=dev) * K, repeats)
-    ks = torch.arange(C * K, device=dev)
     wc = max(min(W, MAX_DENSE_ENTRIES // max(N, 1)), 1)
     carry = torch.zeros(N, dtype=torch.int64, device=dev)
     parts = []
@@ -246,16 +206,10 @@ def _msm_ragged_dense(curve: Curve, points: PointJ, scalars_std: torch.Tensor, s
         ws = range(w0, min(W, w0 + wc))
         digs, negs, carry = _signed_digit_block(sc, c, ws, carry)
         sorted_k, sorted_i = torch.sort(seg_key[None] + digs, dim=1, stable=True)
-        queries = ks.repeat(len(ws), 1)
-        starts = torch.searchsorted(sorted_k, queries)
-        ends = torch.searchsorted(sorted_k, queries, right=True)
-        lens = torch.where(ks % K == 0, 0, ends - starts)  # digit 0 adds nothing
         wl = torch.arange(len(ws), device=dev)
-        offs = (wl * N)[:, None]
         parts.append(_dense_bucket_sums(
             curve, aff, sorted_i.reshape(-1), torch.gather(negs, 1, sorted_i).reshape(-1),
-            (sorted_k + (wl * C * K)[:, None]).reshape(-1),
-            (ends + offs).reshape(-1), (starts + offs).reshape(-1), lens.reshape(-1)))
+            (sorted_k + (wl * C * K)[:, None]).reshape(-1), len(ws) * C * K, K))
     acc = map_points(lambda *a: torch.cat(a).reshape(W, C, K, a[0].shape[-1]), *parts)
     return _horner_windows(curve, _weighted_bucket_totals(curve, acc), c)
 

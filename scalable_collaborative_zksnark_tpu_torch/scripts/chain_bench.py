@@ -304,8 +304,9 @@ def run(device=DEFAULT, horner=((32, 3, 8), (43, 39, 6)), buckets=((33, 1677),),
                                                reps)
     for kind, n, batch in accumulate:
         args = accumulate_call(curve, kind, n, batch)
+        E, T, NB = args[1].shape[0], args[5], args[6]
         out["accumulate_ms"][f"{kind}:{n},{batch}"] = {
-            "shape": [args[1].shape[0], args[5], args[6]],
+            "shape": [E, T, -(-E // T), NB],
             **_timed(lambda: cuda_g1.accumulate(*args), dev, reps)}
     for k, (W, C, c) in enumerate(horner):
         tot = _points(curve, (W, C), 81 + k)

@@ -55,11 +55,12 @@ def run(device=DEFAULT, reps: int = 5, lanes: int = LANES, steps: int = STEPS,
     rows = []
     bases = rand_points_flat(curve, min(BASES, lanes * steps), 91)
     E = lanes * steps
-    keys = torch.zeros(E, dtype=torch.int64, device=dev)  # one bucket a lane: every step adds
+    # one bucket a lane (bucket 0, digit 0, holds nothing): every step adds
+    keys = torch.arange(E, device=dev) // steps + 1
     pid = torch.arange(E, device=dev) % bases.x.shape[0]
     neg = torch.zeros(E, dtype=torch.bool, device=dev)
     rows.append(_timeit(f"{steps}x accumulate step [{lanes}]", lambda: cuda_g1.accumulate(
-        spec, keys, pid, neg, bases, lanes, steps), dev, reps))
+        spec, keys, pid, neg, bases, lanes, lanes + 1, lanes + 1), dev, reps))
 
     acc = curve.double(rand_points_flat(curve, lanes, 92))
     q = rand_points_flat(curve, lanes, 93)

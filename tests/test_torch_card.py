@@ -85,21 +85,27 @@ def test_chain_kernels_match_plain_on_card(cuda):
 def test_team_kernels_match_plain_on_card(cuda):
     """Point add (a team of 4 lanes a point) at 3, 96 and 8,192 lanes, with
     the six edge lanes at 3 and 8,192, and the accumulate (a team of 2
-    lanes a scan lane) on ``chip_smoke.accumulate_cases``: a forced
-    x-collision, a warp whose teams diverge (resets, adds, cancels,
-    padding and doublings at one step) and random keys over two staging
-    chunks; bit for bit against their plain versions, one launch a call."""
+    lanes a scan lane, its walk and its join) on
+    ``chip_smoke.accumulate_cases`` (a forced x-collision, a warp whose
+    teams diverge, random keys over two staging chunks, one bucket over
+    every lane, empty buckets and digit 0, 130 blocks) and on a full pass
+    at the card's lanes (``chip_smoke.full_pass_case``); bit for bit
+    against their plain versions with the same adds doubled, one launch
+    a call (the accumulate two where it has more than one block)."""
     C = bls12_381_g1(cuda)
     spec = C.fq.spec
     held = chip_smoke.check_add_lanes(C, (3, 96, 8192))  # checks one launch a call
     assert held == [3, 96, 8192, "3 with edge lanes", "3 with edge lanes",
                     "8192 with edge lanes"]
-    for name, args in chip_smoke.accumulate_cases(C):
-        before = cuda_g1.accumulate.launches
-        out, doubled = cuda_g1.accumulate(spec, *args)
-        assert cuda_g1.accumulate.launches == before + 1
-        want, want_doubled = cuda_g1.accumulate.plain(spec, *args)
-        assert doubled == want_doubled > 0, name
+    full = chip_smoke.full_pass_case(C)
+    assert full[4] == cuda_g1.resident_lanes(cuda.index or 0) > 8192
+    for name, args in chip_smoke.accumulate_cases(C) + [("full_pass", full)]:
+        before = cuda_g1.accumulate.launches, int(cuda_g1.accumulate.repaired)
+        out = cuda_g1.accumulate(spec, *args)
+        after = cuda_g1.accumulate.launches, int(cuda_g1.accumulate.repaired)
+        assert after[0] - before[0] == 1 + (args[4] > cuda_g1.SCAN_LANES), name
+        want, want_doubled = cuda_g1.accumulate_plain(spec, *args)
+        assert after[1] - before[1] == want_doubled and (want_doubled > 0 or name == "full_pass")
         assert all(torch.equal(a, b) for a, b in zip(out, want, strict=True)), name
 
 

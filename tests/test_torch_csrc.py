@@ -82,6 +82,15 @@ inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+/* the emulation's card: 2 SMs, 3 blocks of any kernel an SM */
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 2; return cudaSuccess; }
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = 3;
+  return cudaSuccess;
+}
 struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; size_t sharedSizeBytes; };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, const void*) {
@@ -518,25 +527,44 @@ def test_emulated_team_point_ops(emulated, curve, op):
         _assert_points_equal(out, want)
 
 
-@pytest.mark.parametrize("case", ["collision", "diverging_warp", "random_two_chunks"])
+@pytest.mark.parametrize("case", ["collision", "diverging_warp", "random_two_chunks",
+                                  "one_bucket", "ragged_digit0", "many_blocks"])
 def test_emulated_team_accumulate(emulated, curve, case):
-    """``accumulate_team_kernel`` against ``accumulate_plain`` on
-    ``chip_smoke.accumulate_cases``: the forced x-collision, the warp whose
-    eight teams take resets, adds, cancels, padding and doublings at the
-    same steps, and random keys over 72 lanes (a full and a partial
-    block) and 70 steps (two staging chunks)."""
+    """``accumulate_team_kernel`` and ``accumulate_team_kernel_join``
+    against ``accumulate_plain`` on ``chip_smoke.accumulate_cases``: the
+    forced x-collision, the warp whose eight teams take resets, adds,
+    cancels, padding and doublings at the same steps, random keys over 72
+    lanes (a full and a partial block) and 70 steps (two staging chunks),
+    one bucket over every lane and a block boundary, empty buckets and
+    digit 0 with E not a multiple of T, and 130 blocks (two a team of the
+    join) with chains of whole blocks; bit for bit, with the same count of
+    adds that doubled.  The output starts as 0xA5 bytes: the kernels
+    write every bucket."""
     spec = curve.fq.spec
-    keys, pid, neg, bases, T, steps = dict(chip_smoke.accumulate_cases(curve))[case]
+    keys, pid, neg, bases, T, NB, K = dict(chip_smoke.accumulate_cases(curve))[case]
     bases = tuple(a.contiguous() for a in bases)
-    scanned = _new(spec, (steps, T))
+    G = -(-T // cuda_g1.SCAN_LANES)
+    out = tuple(torch.full((NB, spec.num_limbs), -0x5A5A5A5B, dtype=torch.int32)
+                for _ in range(3))
+    scratch = _new(spec, (2 * G,))
+    meta = torch.zeros(3 * G, dtype=torch.int32)
     rep = torch.zeros(1, dtype=torch.int32)
     assert emulated["g1"].sczk_g1_accumulate(
-        keys.data_ptr(), pid.data_ptr(), neg.data_ptr(), keys.shape[0], *_ptrs(bases), T, steps,
-        *_ptrs(scanned), rep.data_ptr(), _consts(spec), None) == 0
-    want, doubled = cuda_g1.accumulate_plain(spec, keys, pid, neg, bases, T, steps)
-    _assert_points_equal(scanned, want)
+        keys.data_ptr(), pid.data_ptr(), neg.data_ptr(), keys.shape[0], *_ptrs(bases), T, NB, K,
+        *_ptrs(out), *_ptrs(scratch), meta.data_ptr(), rep.data_ptr(), _consts(spec), None) == 0
+    want, doubled = cuda_g1.accumulate_plain(spec, keys, pid, neg, bases, T, NB, K)
+    _assert_points_equal(out, want)
     assert int(rep) == doubled
     assert doubled > 0
+
+
+def test_emulated_accumulate_lanes(emulated):
+    """``sczk_g1_accumulate_lanes``: blocks an SM at the walk's occupancy
+    times the SMs times its 64 lanes a block, on the emulation's card of 2
+    SMs that holds 3 blocks of any kernel."""
+    out = np.zeros(3, dtype=np.int32)
+    assert emulated["g1"].sczk_g1_accumulate_lanes(out.ctypes.data) == 0
+    assert out.tolist() == [3 * 2 * cuda_g1.SCAN_LANES, 3, 2]
 
 
 @pytest.mark.parametrize("case", ["diverging_warp", "short_scalars"])

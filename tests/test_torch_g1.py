@@ -75,22 +75,24 @@ def case_points(curves):
 
 
 def _accumulate_vs_jax_scan(T, J):
-    """The accumulate's output at every step against the JAX package's
-    scan body (``add_mixed_reset_lazy`` and the repair of flagged lanes,
-    msm.py:467-479) on the same entries: three lanes of four steps over
-    the table (A, B, A + B, C, infinity) that meet an x-collision with a
-    Jacobian and with an affine accumulator, a cancelling pair, infinity
-    on either side, key changes and one padding entry."""
+    """The accumulate's bucket sums against the JAX package's scan body
+    (``add_mixed_reset_lazy`` and the repair of flagged lanes,
+    msm.py:467-479) on the same entries, at each bucket's last entry:
+    three lanes of four steps over the table (A, B, A + B, C, infinity)
+    that meet an x-collision with a Jacobian and with an affine
+    accumulator, a cancelling pair, infinity on either side, key changes
+    and one padding entry; bucket 0 (digit 0) holds no entry."""
     A, B, C = _host_points(3, 13)
     table = [A, B, hc.g1_add(A, B), C, None]
-    keys = [0, 0, 0, 0, 1, 1, 2, 2, 3, 3, 3]
+    keys = [1, 1, 1, 1, 2, 2, 3, 3, 4, 4, 4]
     pid = [0, 1, 2, 2, 0, 0, 4, 3, 3, 3, 4]
     neg = [0, 0, 0, 1, 0, 0, 0, 0, 0, 1, 0]
     lanes, steps, pad = 3, 4, 1
-    got, doubled = cuda_g1.accumulate(T.fq.spec, torch.tensor(keys), torch.tensor(pid),
-                                      torch.tensor(neg, dtype=torch.bool),
-                                      T.from_affine_ints(table), lanes, steps)
-    assert doubled == 2  # lane 0 at step 2, lane 1 at step 1
+    before = int(cuda_g1.accumulate.repaired)
+    got = cuda_g1.accumulate(T.fq.spec, torch.tensor(keys), torch.tensor(pid),
+                             torch.tensor(neg, dtype=torch.bool), T.from_affine_ints(table),
+                             lanes, 5, 5)
+    assert int(cuda_g1.accumulate.repaired) - before == 2  # lane 0 at step 2, lane 1 at step 1
 
     jt = J.from_affine_ints(table)
     pts = jg1.PointJ(*(a[jnp.asarray(pid + [4] * pad)] for a in jt))  # padding: infinity
@@ -98,12 +100,16 @@ def _accumulate_vs_jax_scan(T, J):
     k = np.array(keys + [cuda_g1.SENTINEL] * pad, dtype=np.int64).reshape(lanes, steps).T
     pts = jg1.PointJ(*(a.reshape(lanes, steps, -1).swapaxes(0, 1) for a in pts))
     acc, prev = J.infinity((lanes,)), np.full(lanes, cuda_g1.SENTINEL)
+    ends = {(3, 0): 1, (1, 1): 2, (3, 1): 3, (2, 2): 4}  # (step, lane): the bucket ending there
     for s in range(steps):
         out, flag = J.add_mixed_reset_lazy(acc, jg1.PointJ(*(a[s] for a in pts)),
                                            jnp.asarray(k[s] == prev))
         acc = J.select(flag, J.double(acc), out)
         prev = k[s]
-        _eq(PointJ(*(a[s] for a in got)), acc)
+        for lane in range(lanes):
+            if (s, lane) in ends:
+                _eq(PointJ(*(a[ends[s, lane]] for a in got)), jg1.PointJ(*(a[lane] for a in acc)))
+    _eq(PointJ(*(a[0] for a in got)), J.infinity(()))
 
 
 @pytest.mark.parametrize("op", ["add", "add_mixed", "double", "add_mixed_reset_lazy"])
@@ -316,8 +322,9 @@ def test_chain_bench_on_cpu(capsys):
     for row in (*out["masked_ms"].values(), out["ladder_ms"]["2x1"]):
         assert row["device"] is None and row["events"] > 0
     acc = out["accumulate_ms"]["ragged:8,1"]
-    E, T, steps = acc["shape"]
+    E, T, steps, NB = acc["shape"]
     assert acc["events"] > 0 and acc["device"] is None and 0 < E <= T * steps < E + T
+    assert T == cuda_g1.accumulate_lanes(E, "cpu") and NB > 0
     row = out["bucket_serial_ms"]["5,3"]
     assert set(row) == {"default", "default_segments", "S=1", "S=2"}
     assert row["default_segments"] == cuda_g1.bucket_segments(5, 3)

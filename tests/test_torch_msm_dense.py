@@ -134,7 +134,7 @@ def test_dense_msm_fixed_c(curves, data, monkeypatch):
     for name, sc in sets.items():
         got = msm._msm_1d_dense(T, P, convert.from_numpy(sc, "cpu"), 4)
         assert _affine(T, got) == _jax_affine(J, _jax_msm(J, pts, sc)), name
-    assert [args[-1].shape for args in seen] == [(64 * 9,)] * 2
+    assert [args[-2:] for args in seen] == [(64 * 9, 9)] * 2  # buckets, digit-0 period
 
 
 def test_chunked_dense_core_top_window(curves, data, monkeypatch):
@@ -155,6 +155,6 @@ def test_chunked_dense_core_top_window(curves, data, monkeypatch):
     want = [_jax_affine(J, _jax_msm(J, jax.tree.map(lambda a: a[s], jp), sc[s]))[0]
             for s in (slice(k, k + 10) for k in range(0, 40, 10))]
     assert T.to_affine_ints(got) == want
-    assert [len(args[-1]) // (4 * 17) for args in seen] == [25, 25, 2]
+    assert [args[-2] // (4 * 17) for args in seen] == [25, 25, 2]
     (_, acc), = grids
     assert acc.x.shape[:3] == (52, 4, 17) and 52 * 4 >= msm.SERIAL_REDUCE_MIN_LANES

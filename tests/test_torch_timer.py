@@ -133,8 +133,9 @@ def test_sync_counters_repeat_prove_to_prove(recorded):
     _, counters, _ = recorded
     first, second = (counters[j] for j in sorted(counters))
     assert first == second and set(first) >= {"sync.normalize", "sync.upload.field",
-                                              "sync.msm_repeat"}
-    assert all(k.startswith("sync.") and v > 0 for k, v in first.items())
+                                              "sync.msm_repeat", "msm.dense_passes"}
+    assert all(k.startswith(("sync.", "msm.")) and v > 0 for k, v in first.items())
+    assert first["msm.dense_lanes"] >= first["msm.dense_passes"]
 
 
 def test_set_sync_is_called_at_trace_edges_only(recorded):
